@@ -1,0 +1,85 @@
+"""Plain PyTorch versions of every kernel in this package.
+
+Each function is the semantic ground truth its CUDA kernel is held to —
+on the card by ``chip_smoke.py`` and the ``cuda``-marked tests, on the CPU
+against the reference package's Pallas kernels in interpret mode
+(tests/test_torch_kernels.py) — and what a kernel wrapper runs for CPU
+tensors. Arithmetic is float32 throughout, like the reference oracles.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "none":
+        return x
+    if activation == "relu":
+        return torch.relu(x)
+    if activation == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation; torch to erf
+        return F.gelu(x, approximate="tanh")
+    if activation == "silu":
+        return F.silu(x)
+    raise ValueError(f"unknown activation {activation}")
+
+
+def dense_engine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+                 *, activation: str = "none") -> torch.Tensor:
+    """Dense Engine: act(x @ w + b); x (M, K), w (K, N), b (N,) or None."""
+    out = x.float() @ w.float()
+    if b is not None:
+        out = out + b.float()
+    return _activate(out, activation).to(x.dtype)
+
+
+def shard_spmm(blocks: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Graph Engine linear aggregation over the shard grid.
+
+    blocks: (S_dst, S_src, n, n), A[i, j, v, u]; h: (S_src, n, D).
+    Returns (S_dst, n, D): out[i, v] = Σ_{j,u} A[i,j,v,u] · h[j,u].
+    """
+    return torch.einsum("ijvu,jud->ivd", blocks.float(),
+                        h.float()).to(h.dtype)
+
+
+def fused_gnn(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor, *,
+              activation: str = "none") -> torch.Tensor:
+    """Fused aggregation + feature extraction: act((A · H) · W).
+
+    blocks (S, S, n, n), h (S, n, D), w (D, F) -> (S, n, F).
+    """
+    agg = torch.einsum("ijvu,jud->ivd", blocks.float(), h.float())
+    out = torch.einsum("ivd,df->ivf", agg, w.float())
+    return _activate(out, activation).to(h.dtype)
+
+
+def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+               edge_valid: torch.Tensor, h: torch.Tensor, *,
+               op: str = "max") -> torch.Tensor:
+    """Edge-list aggregation over the shard grid, vectorized.
+
+    edge_src/edge_dst: (S_dst, S_src, E) int32 local ids, edge_valid
+    (S_dst, S_src, E) bool; h: (S_src, n, D). Every valid slot (i, j, e)
+    is the edge (src = j·n + edge_src, dst = i·n + edge_dst); one
+    scatter-reduce over the global destination ids takes the max or sum.
+    A destination with no valid in-edge gets 0.
+    """
+    if op not in ("max", "sum"):
+        raise ValueError(f"unknown op {op}")
+    s_dst = edge_src.shape[0]
+    _, n, d = h.shape
+    ii, jj, ee = edge_valid.nonzero(as_tuple=True)
+    src = jj * n + edge_src[ii, jj, ee].long()
+    dst = ii * n + edge_dst[ii, jj, ee].long()
+    vals = h.reshape(-1, d).float()[src]
+    if op == "max":
+        out = torch.full((s_dst * n, d), float("-inf"), device=h.device)
+        out.scatter_reduce_(0, dst[:, None].expand(-1, d), vals,
+                            reduce="amax", include_self=True)
+        out = torch.where(torch.isfinite(out), out, 0.0)
+    else:
+        out = torch.zeros((s_dst * n, d), device=h.device)
+        out.index_add_(0, dst, vals)
+    return out.reshape(s_dst, n, d).to(h.dtype)

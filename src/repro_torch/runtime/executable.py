@@ -1,0 +1,212 @@
+"""The compiled unit the runtime hands back: plan + graph + params.
+
+An :class:`Executable` owns everything needed to run one zoo model on one
+graph on one device and kernel backend:
+
+  * the :class:`~repro_torch.gnn.executor.ModelPlan`,
+  * the signature-keyed :class:`~repro_torch.core.engines.GraphTensors`
+    build (shared across Executables through a GraphStore),
+  * full-graph (``forward``) and node-batch (``forward_nodes`` /
+    ``predict``) entry points; the node-batch path is answered from a
+    cached full-graph softmax, since one shard-grid sweep per layer
+    covers every node,
+  * parameter serialization in the reference package's flat npz layout
+    (``save_params`` / ``load_params``), so checkpoints cross between
+    the two packages.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.engines import GraphTensors
+from repro_torch.gnn.executor import ModelPlan
+from repro_torch.gnn.models import ZooSpec, params_from_numpy
+from repro_torch.kernels.registry import KernelBackend
+from repro_torch.runtime import forward as _fwd
+
+
+def _softmax(x: np.ndarray) -> np.ndarray:
+    x = x - x.max(axis=-1, keepdims=True)
+    e = np.exp(x)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def _flatten_params(tree, prefix="", out=None) -> dict:
+    """{"layers": [{"w": t}]} -> {"layers/0/w": array} (numpy leaves)."""
+    if out is None:
+        out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten_params(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten_params(v, f"{prefix}{i}/", out)
+    else:
+        out[prefix[:-1]] = tree.detach().cpu().numpy() \
+            if isinstance(tree, torch.Tensor) else np.asarray(tree)
+    return out
+
+
+def _unflatten_params(flat: dict):
+    """Inverse of :func:`_flatten_params`; digit keys become lists in
+    numeric order (gaps allowed, as in a pruned checkpoint)."""
+    root: dict = {}
+    for key, val in flat.items():
+        node = root
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[k]) for k in sorted(node, key=int)]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def validate_params_like(old, new) -> None:
+    """Raise ValueError unless ``new`` has the same tree structure and
+    leaf shapes as ``old`` — the hot-reload contract."""
+    old_flat, new_flat = _flatten_params(old), _flatten_params(new)
+    if old_flat.keys() != new_flat.keys():
+        raise ValueError(f"param tree mismatch: compiled "
+                         f"{sorted(old_flat)}, got {sorted(new_flat)}")
+    for k, o in old_flat.items():
+        if o.shape != new_flat[k].shape:
+            raise ValueError(f"param {k} shape mismatch: compiled "
+                             f"{o.shape}, got {new_flat[k].shape}")
+
+
+class Executable:
+    """A zoo model compiled against one graph, plan, device and backend."""
+
+    def __init__(self, *, spec: ZooSpec, plan: ModelPlan,
+                 backend: KernelBackend, gt: GraphTensors,
+                 h_grouped: torch.Tensor | None, params: dict,
+                 graph_key=None):
+        self.spec = spec
+        self.plan = plan
+        self.backend = backend
+        self.gt = gt
+        self.params = params
+        self.graph_key = graph_key
+        self._h_grouped = h_grouped
+        self._probs: np.ndarray | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.gt.device
+
+    # -- forward entry points ---------------------------------------------
+
+    @torch.inference_mode()
+    def forward(self, params: dict | None = None,
+                features: np.ndarray | torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """Full-graph logits (N, num_classes) on the device.
+
+        ``features`` (N, F) overrides the compiled-in graph features;
+        ``params`` overrides the compiled-in parameters.
+        """
+        p = self.params if params is None else params
+        if features is None:
+            if self._h_grouped is None:
+                raise ValueError("compiled without features; pass features=")
+            h = self._h_grouped
+        else:
+            h = self.gt.group(torch.as_tensor(features, dtype=torch.float32,
+                                              device=self.device))
+        return _fwd.forward(self.spec, p, self.gt, h,
+                            plans=self.plan.layers, backend=self.backend)
+
+    def _check_node_ids(self, node_ids) -> np.ndarray:
+        """Validate ids against the compiled graph: a negative id would
+        wrap around and return another node's prediction."""
+        ids = np.asarray(node_ids, dtype=np.int64)
+        if ids.size:
+            lo, hi = int(ids.min()), int(ids.max())
+            if lo < 0 or hi >= self.gt.num_nodes:
+                raise ValueError(
+                    f"node ids must be in [0, {self.gt.num_nodes}); got "
+                    f"range [{lo}, {hi}]")
+        return ids
+
+    def forward_nodes(self, node_ids, params: dict | None = None
+                      ) -> torch.Tensor:
+        """Node-batch logits (k, num_classes) for ``node_ids``."""
+        ids = self._check_node_ids(node_ids)
+        logits = self.forward(params)
+        return logits[torch.as_tensor(ids, device=self.device)]
+
+    def full_probs(self) -> np.ndarray:
+        """Cached full-graph class probabilities (N, C) on the host;
+        computed once per parameter set, then every node-batch request
+        is a numpy gather."""
+        if self._probs is None:
+            logits = self.forward().cpu().numpy().astype(np.float32)
+            self._probs = _softmax(logits)
+        return self._probs
+
+    def predict(self, node_ids) -> tuple[np.ndarray, np.ndarray]:
+        """(classes, probs) for a node batch from the cached softmax."""
+        ids = self._check_node_ids(node_ids)
+        p = self.full_probs()[ids]
+        return (np.argmax(p, axis=-1).astype(np.int32),
+                np.max(p, axis=-1).astype(np.float32))
+
+    def step(self, node_id_batches) -> list[tuple[np.ndarray, np.ndarray,
+                                                  float]]:
+        """Batch-step entry point (the serving Engine protocol's unit of
+        work). Each query is timed on its own: the full-graph forward runs
+        at most once, on the first cold query, and is charged to it.
+        Returns ``(classes, probs, engine_ms)`` per query."""
+        out = []
+        for ids in node_id_batches:
+            t0 = time.perf_counter()
+            classes, probs = self.predict(ids)
+            out.append((classes, probs, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    @property
+    def has_cached_probs(self) -> bool:
+        return self._probs is not None
+
+    def invalidate(self) -> None:
+        """Drop the cached full-graph probabilities (e.g. weight swap)."""
+        self._probs = None
+
+    def update_params(self, params: dict) -> None:
+        """Hot weight reload: adopt new parameters of the same tree and
+        shapes (numpy or tensors), moved to this Executable's device. The
+        cached probabilities are invalidated once, as part of the swap."""
+        validate_params_like(self.params, params)
+        self.params = params_from_numpy(params, self.device)
+        self.invalidate()
+
+    # -- introspection / serialization ------------------------------------
+
+    def summary(self) -> str:
+        n_params = sum(int(v.size)
+                       for v in _flatten_params(self.params).values())
+        return (f"Executable[{self.spec.arch}] backend={self.backend.name} "
+                f"device={self.device} params={n_params} "
+                f"grid={self.gt.S}x{self.gt.S} n={self.gt.n}\n"
+                + self.plan.summary())
+
+    def save_params(self, path) -> None:
+        """Flat npz, keys like ``layers/0/w`` — the reference layout."""
+        np.savez(path, **_flatten_params(self.params))
+
+    def load_params(self, path) -> dict:
+        """Load a flat npz (written by either package) and adopt it."""
+        with np.load(path) as z:
+            params = _unflatten_params(dict(z))
+        self.update_params(params)
+        return self.params

@@ -1,0 +1,270 @@
+"""GNN node-classification engine: the compile/cache core under the Server.
+
+Requests name a registered graph + model and a set of node ids. The engine
+implements the serving :class:`~repro_torch.serving.api.Engine` step
+protocol — ``route`` validates a request and streams it by (model, graph),
+``step`` answers one formed micro-batch from a compiled
+:class:`repro_torch.runtime.Executable`, cached per (model, graph). Two
+caches sit under it:
+
+  * **graph-tensor cache** — a private
+    :class:`repro_torch.runtime.GraphStore` keyed on ``(graph, normalize,
+    self_loops, shard_n, device)``, so models sharing a signature share
+    one sharded build on the card;
+  * **logits cache** — each Executable computes class probabilities for
+    ALL nodes once (:meth:`Executable.full_probs`); every later node id
+    on that pair is a host-side gather.
+
+Latency accounting is per request: ``Prediction.engine_ms`` is the time
+spent answering THAT request (the cold full-graph forward is charged to
+the request that triggered it); compile time accrues to
+``stats["compile_ms_total"]``. ``queue_ms`` is stamped by the Server.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import runtime
+from repro_torch.gnn.models import ZooSpec, init_params, params_from_numpy
+from repro_torch.graphs.datasets import GraphData
+from repro_torch.runtime.executable import validate_params_like
+from repro_torch.runtime.forward import check_arch
+
+
+@dataclasses.dataclass
+class NodeRequest:
+    """Classify ``node_ids`` of ``graph`` with ``model``."""
+
+    graph: str
+    node_ids: np.ndarray            # (k,) int
+    model: str = "gcn"
+
+
+@dataclasses.dataclass
+class Prediction:
+    graph: str
+    model: str
+    node_ids: np.ndarray
+    classes: np.ndarray             # (k,) int32 argmax class per node
+    probs: np.ndarray               # (k,) float32 softmax mass of the argmax
+    queue_ms: float = 0.0           # admission -> dispatch (Server-stamped)
+    engine_ms: float = 0.0          # THIS request's engine time
+    latency_ms: float = 0.0         # queue_ms + engine_ms
+
+
+@dataclasses.dataclass
+class _ModelEntry:
+    spec: ZooSpec
+    params: dict
+
+
+class GNNServeEngine:
+    """Batched node-classification inference over named graphs/models.
+
+    ``device`` is where every graph build, parameter set and forward
+    lives (``cuda`` unless the caller names another); ``backend`` is
+    pinned into every compiled Executable (``cuda`` kernels by default,
+    or ``reference``)."""
+
+    def __init__(self, *, device: torch.device | str | None = None,
+                 max_graph_entries: int = 8, max_shard_n: int = 1024,
+                 max_dense_gib: float = 8.0, backend: str | None = None):
+        self.device = runtime.resolve_device(device)
+        # registries + compiled units: mutated by register_* and
+        # reload_params, which the Server serializes with engine steps
+        # (Server.reload holds its step lock)
+        self._graphs: dict[str, GraphData] = {}
+        self._models: dict[str, _ModelEntry] = {}
+        self._store = runtime.GraphStore(max_entries=max_graph_entries)
+        self._executables: dict[tuple[str, str], runtime.Executable] = {}
+        self.max_shard_n = max_shard_n
+        self.max_dense_gib = max_dense_gib
+        self.backend = backend
+        self._stats = {
+            "logits_cache_hits": 0, "logits_cache_misses": 0,
+            "requests": 0, "batches": 0, "nodes_served": 0,
+            "compiles": 0, "compile_ms_total": 0.0,
+            "reloads": 0, "logits_invalidations": 0,
+        }
+
+    @property
+    def stats(self) -> dict:
+        """Serving counters merged with the graph-store counters."""
+        s = self._store.stats
+        return {**self._stats,
+                "graph_cache_hits": s["hits"],
+                "graph_cache_misses": s["misses"],
+                "graph_cache_evictions": s["evictions"],
+                "graph_built_ms_total": s["built_ms_total"]}
+
+    @property
+    def store(self) -> runtime.GraphStore:
+        """The engine's graph-tensor cache (to compile beside the engine
+        against the same builds)."""
+        return self._store
+
+    # -- registration ------------------------------------------------------
+
+    def register_graph(self, name: str, data: GraphData) -> None:
+        # fail fast before sharding: densified shard blocks cost
+        # (padded N)² · 4 bytes of device memory
+        n_pad = -(-data.profile.num_nodes // self.max_shard_n) * self.max_shard_n
+        est_bytes = n_pad ** 2 * 4
+        if est_bytes > self.max_dense_gib * 2 ** 30:
+            raise ValueError(
+                f"graph {name!r} ({data.profile.num_nodes} nodes) would "
+                f"densify to ~{est_bytes / 2**30:.0f} GiB of shard blocks "
+                f"(limit {self.max_dense_gib} GiB); register a scaled-down "
+                f"dataset (make_dataset(..., scale=...)) or raise "
+                f"max_dense_gib")
+        self._graphs[name] = data
+        # stale sharded tensors / executables for a replaced graph must go
+        self._store.evict(name)
+        for key in [k for k in self._executables if k[1] == name]:
+            del self._executables[key]
+
+    def register_model(self, name: str, spec: ZooSpec,
+                       params: dict | None = None, *, seed: int = 0) -> None:
+        """Register a model; ``params`` (numpy arrays or tensors, e.g. the
+        reference package's pytree) or a fresh draw from ``seed``."""
+        if params is None:
+            params = init_params(spec, torch.Generator().manual_seed(seed),
+                                 self.device)
+        else:
+            params = params_from_numpy(params, self.device)
+        self._models[name] = _ModelEntry(spec=spec, params=params)
+        for key in [k for k in self._executables if k[0] == name]:
+            del self._executables[key]
+
+    def reload_params(self, model: str, params: dict) -> int:
+        """Hot weight reload: swap ``model``'s parameters into every
+        compiled Executable without recompiling. All-or-nothing: the new
+        tree is validated against the registered one before any
+        Executable is touched. Each affected Executable's logits cache is
+        invalidated exactly once. Drive it through
+        :meth:`repro_torch.serving.api.Server.reload` so the swap is
+        serialized with engine steps. Returns the number of Executables
+        updated."""
+        ent = self._models[model]          # KeyError for unknown models
+        try:
+            validate_params_like(ent.params, params)
+        except ValueError as err:
+            raise ValueError(
+                f"reload for model {model!r} rejected: {err}") from None
+        params = params_from_numpy(params, self.device)
+        touched = 0
+        for (m, _g), exe in self._executables.items():
+            if m == model:
+                exe.update_params(params)
+                touched += 1
+        ent.params = params
+        self._stats["reloads"] += 1
+        self._stats["logits_invalidations"] += touched
+        return touched
+
+    # -- compile path ------------------------------------------------------
+
+    def executable(self, model: str, graph: str) -> runtime.Executable:
+        """Fetch-or-compile the Executable serving a (model, graph) pair."""
+        key = (model, graph)
+        exe = self._executables.get(key)
+        if exe is None:
+            ent = self._models[model]
+            t0 = time.perf_counter()
+            exe = runtime.compile(
+                ent.spec, self._graphs[graph], device=self.device,
+                params=ent.params, backend=self.backend,
+                max_shard_n=self.max_shard_n, store=self._store,
+                graph_key=graph)
+            self._executables[key] = exe
+            self._stats["compiles"] += 1
+            self._stats["compile_ms_total"] += \
+                (time.perf_counter() - t0) * 1e3
+        return exe
+
+    # -- Engine step protocol (what the Server drives) ---------------------
+
+    def route(self, req: NodeRequest) -> tuple[str, str]:
+        """Validate one request and name its stream: the (model, graph)
+        pair. Raising here resolves the ticket as a typed Rejected."""
+        if req.model not in self._models:
+            raise KeyError(f"unknown model {req.model!r}")
+        if req.graph not in self._graphs:
+            raise KeyError(f"unknown graph {req.graph!r}")
+        check_arch(self._models[req.model].spec.arch)
+        ids = np.asarray(req.node_ids, dtype=np.int64)
+        n_nodes = self._graphs[req.graph].profile.num_nodes
+        if ids.size and (ids.min() < 0 or ids.max() >= n_nodes):
+            raise IndexError(f"node ids out of range for graph "
+                             f"{req.graph!r} ({n_nodes} nodes)")
+        return (req.model, req.graph)
+
+    def step(self, key: tuple[str, str],
+             payloads: Sequence[NodeRequest]) -> list:
+        """Answer one formed micro-batch (all requests share ``key``'s
+        Executable). Results match ``payloads`` positionally; a request
+        whose node ids went stale between admission and dispatch yields
+        its ValueError positionally, failing that ticket alone."""
+        model, graph = key
+        exe = self.executable(model, graph)
+        checked: list[np.ndarray | Exception] = []
+        for r in payloads:
+            try:
+                checked.append(exe._check_node_ids(r.node_ids))
+            except ValueError as err:
+                checked.append(err)
+        id_batches = [ids for ids in checked
+                      if not isinstance(ids, Exception)]
+        miss = 0 if exe.has_cached_probs or not id_batches else 1
+        self._stats["logits_cache_misses"] += miss
+        self._stats["logits_cache_hits"] += len(id_batches) - miss
+        answers = iter(exe.step(id_batches))
+        out: list = []
+        for ids in checked:
+            if isinstance(ids, Exception):
+                out.append(ids)
+                continue
+            classes, probs, ms = next(answers)
+            out.append(Prediction(
+                graph=graph, model=model, node_ids=ids, classes=classes,
+                probs=probs, engine_ms=ms, latency_ms=ms))
+            self._stats["requests"] += 1
+            self._stats["nodes_served"] += int(ids.size)
+        self._stats["batches"] += 1
+        return out
+
+    # -- synchronous batch core --------------------------------------------
+
+    def serve(self, requests: Sequence[NodeRequest]) -> list[Prediction]:
+        """Serve a batch synchronously; answers keep the caller's request
+        order. Every request is validated before any is served."""
+        groups: OrderedDict[tuple[str, str], list[int]] = OrderedDict()
+        for i, r in enumerate(requests):
+            groups.setdefault(self.route(r), []).append(i)
+
+        out: list[Prediction | None] = [None] * len(requests)
+        for key, idxs in groups.items():
+            preds = self.step(key, [requests[j] for j in idxs])
+            for i, pred in zip(idxs, preds):
+                out[i] = pred
+        return out  # type: ignore[return-value]
+
+    def cache_report(self) -> str:
+        s = self.stats
+        g_tot = s["graph_cache_hits"] + s["graph_cache_misses"]
+        l_tot = s["logits_cache_hits"] + s["logits_cache_misses"]
+        return (f"graph-tensor cache: {s['graph_cache_hits']}/{g_tot} hits "
+                f"({len(self._store)} resident, "
+                f"{s['graph_cache_evictions']} evicted, "
+                f"{s['graph_built_ms_total']:.0f} ms building) | "
+                f"logits cache: {s['logits_cache_hits']}/{l_tot} hits | "
+                f"{s['compiles']} executables compiled "
+                f"({s['compile_ms_total']:.0f} ms) | "
+                f"{s['requests']} requests, {s['nodes_served']} nodes in "
+                f"{s['batches']} batches")

@@ -20,6 +20,8 @@ import types
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end test (subprocess runs)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
 
 
 try:  # pragma: no cover - exercised only when hypothesis is installed
