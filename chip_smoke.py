@@ -4,39 +4,60 @@
     python3 chip_smoke.py
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it,
-and fails (non-zero exit, no result line) without them. In order:
+and fails (non-zero exit, no result line) without them. Device memory:
+~5 GB of Pubmed block grids, then (after they are freed) 16.4 GB of
+qwen3-8b weights plus ~1.2 GB of KV cache and a few GB of plain-attention
+scratch. In order:
 
 1. device check: prints ``nvidia-smi``'s name and power limit; TF32 off;
 2. build: compiles ``src/repro_torch/kernels/csrc`` for sm_90a and prints
    the ``-Xptxas -v`` report (registers, shared memory, spills);
-3. kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's full-scale Pubmed shapes (atol = rtol = 1e-4 for the
-   float32 products, exact for max, 1e-5 for sum), timed with CUDA events
-   beside the plain version, one PyTorch library call and the card's bound;
-4. serve phase: GNNServeEngine + Server over full-scale Pubmed with gcn,
-   sage_mean and sage_max (hidden 16, 2 layers); every kernel's launch
-   count must rise; each model's full-graph logits must match the same
-   model on the ``reference`` backend within 1e-4;
-5. summary: a ``kernels`` JSON line, then the result line
+3. GNN kernel phase: each GNN kernel against its plain PyTorch version on
+   the card at the GNN path's full-scale Pubmed shapes (atol = rtol = 1e-4
+   for the float32 products, exact for max, 1e-5 for sum), timed with
+   CUDA events beside the plain version, one PyTorch library call and the
+   card's bound;
+4. GNN serve phase: GNNServeEngine + Server over full-scale Pubmed with
+   gcn, sage_mean and sage_max (hidden 16, 2 layers); every GNN kernel's
+   launch count must rise; each model's full-graph logits must match the
+   same model on the ``reference`` backend within 1e-4;
+5. attention kernel phase: flash_attention against its plain version at
+   the LM path's prefill shape (B 4, Hq 32, Hkv 8, S 2048, dh 128,
+   causal) in bfloat16 (8e-2) and float32 (2e-4), and at an Sq < Skv
+   shape, timed beside the plain version and
+   ``scaled_dot_product_attention``;
+6. LM serve phase: qwen3-8b at full width (bf16, random weights from a
+   seed) behind the Server (max batch 4): 4 requests with 1024-token and 4
+   with 2048-token prompts, 16 new tokens each, greedy; all must complete,
+   flash_attention must launch once per layer per prefill batch, and one
+   batch's prefill logits must match the ``reference`` backend within
+   ``LM_LOGIT_ATOL``; each batch's prefill is timed on both backends, and
+   one prefill and one decode step are traced with ``torch.profiler``
+   (kernel time, launches, idle share);
+7. summary: a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 No phase catches its own failure: any failure raises.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores,
-# and HBM3. A card capped below 700 W runs slower than these.
+# dense bf16 on the tensor cores, and HBM3. A card capped below 700 W runs
+# slower than these.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 ARCHS = ("gcn", "sage_mean", "sage_max")
@@ -45,7 +66,21 @@ REPLACES = {
     "fused_gnn": "src/repro/kernels/fused_gnn.py:88",
     "dense_engine": "src/repro/kernels/dense_engine.py:87",
     "seg_gather": "src/repro/kernels/seg_gather.py:78",
+    "flash_attention": "src/repro/kernels/flash_attention.py:104",
 }
+
+# the LM path: qwen3-8b at full width, 4 requests per prompt length
+LM_ARCH = "qwen3-8b"
+LM_PROMPTS = (1024, 2048)
+LM_REQUESTS_PER_PROMPT = 4
+LM_NEW_TOKENS = 16
+# cuda vs reference prefill logits (bf16, logits of unit scale): the two
+# backends differ only in attention, whose bf16 outputs may differ by one
+# rounding (2^-8 relative); such flips pass through 36 bf16 layers.
+# Allowed: 0.25 absolute (16 bf16 ulps at |logit| in [2, 4)) and 5e-2 in
+# relative norm; an unmasked or misplaced key would be off by O(1).
+LM_LOGIT_ATOL = 0.25
+LM_LOGIT_REL = 5e-2
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -67,14 +102,36 @@ def _ms(fn, budget_ms: float = 300.0) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float,
+           peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _record(results: dict, name, out, plain, kernel_fn, plain_fn, library_fn,
+            nbytes, flops, peak_flops=PEAK_F32_FLOPS, **extra) -> None:
+    """Time a kernel beside its plain version and library call; add its
+    row of the ``kernels`` line to ``results``."""
+    err = (out.float() - plain.float()).abs().max().item()
+    bound, by = _bound(nbytes, flops, peak_flops)
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+           "replaces": REPLACES[name], "launches": 0,
+           "max_abs_err": err, "ms": _ms(kernel_fn),
+           "plain_ms": _ms(plain_fn), "bound_ms": bound,
+           "bound_by": by,
+           "library_ms": _ms(library_fn) if library_fn else None,
+           **extra}
+    results[name] = row
+    print(f"kernel {name}: max_abs_err {err:.3e} | kernel_ms "
+          f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} library_ms "
+          f"{row['library_ms']:.3f} bound_ms {bound:.3f} ({by}) "
+          f"{extra or ''}")
 
 
 def device_check() -> str:
@@ -122,23 +179,8 @@ def kernel_phase(engine, ds) -> dict:
     rows = s * n
     results = {}
 
-    def record(name, out, plain, kernel_fn, plain_fn, library_fn,
-               nbytes, flops, **extra):
-        err = (out - plain).abs().max().item()
-        bound, by = _bound(nbytes, flops)
-        row = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-               "replaces": REPLACES[name], "launches": 0,
-               "max_abs_err": err, "ms": _ms(kernel_fn),
-               "plain_ms": _ms(plain_fn), "bound_ms": bound,
-               "bound_by": by,
-               "library_ms": _ms(library_fn) if library_fn else None,
-               **extra}
-        results[name] = row
-        print(f"kernel {name}: max_abs_err {err:.3e} | kernel_ms "
-              f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} library_ms "
-              f"{row['library_ms']:.3f} bound_ms {bound:.3f} ({by}) "
-              f"{extra or ''}")
+    def record(*args, **kw):
+        _record(results, *args, **kw)
 
     # shard_spmm: sage_mean's mean-normalized blocks, layer-0 features
     blocks = gts["sage_mean"].blocks                              # (39, 39, 512, 512)
@@ -237,8 +279,9 @@ def kernel_phase(engine, ds) -> dict:
     return results
 
 
-def serve_phase(engine, ds, args) -> dict:
-    """Drive the engine through the Server; return the launch counts."""
+def serve_phase(engine, ds, args, kernels) -> dict:
+    """Drive the engine through the Server; every kernel in ``kernels``
+    must launch. Returns the launch counts."""
     from repro_torch import runtime
     from repro_torch.kernels import _lib
     from repro_torch.launch.serve import drive, latency_percentiles
@@ -260,9 +303,9 @@ def serve_phase(engine, ds, args) -> dict:
     print(f"serve: kernel launches {launches}")
     if done != len(outcomes):
         raise AssertionError(f"only {done}/{len(outcomes)} requests completed")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the GNN path: "
                              f"{missing}")
 
     for arch in ARCHS:
@@ -293,25 +336,267 @@ def serve_phase(engine, ds, args) -> dict:
     return launches
 
 
+def _attention_pairs(sq: int, skv: int) -> int:
+    """(q, k) pairs a causal mask keeps: row i sees keys 0 .. Skv - Sq + i."""
+    seen = np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv)
+    return int(seen.sum())
+
+
+def attention_kernel_phase(dev, results: dict) -> None:
+    """flash_attention against its plain version at the LM prefill shape
+    (bf16 and f32) and at an Sq < Skv shape; timed in bf16 beside the
+    plain version and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(dev).manual_seed(0)
+    b, hq, hkv, dh = 4, 32, 8, 128
+    s = max(LM_PROMPTS)
+
+    def qkv(sq, skv, dtype):
+        return (torch.randn((b, hq, sq, dh), generator=gen, device=dev).to(dtype),
+                torch.randn((b, hkv, skv, dh), generator=gen, device=dev).to(dtype),
+                torch.randn((b, hkv, skv, dh), generator=gen, device=dev).to(dtype))
+
+    errs = {}
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 8e-2)):
+        for sq, skv in ((s, s), (s // 4, s)):
+            q, k, v = qkv(sq, skv, dtype)
+            out = flash_attention(q, k, v, causal=True)
+            plain = ref.flash_attention(q, k, v, causal=True)
+            torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                                       rtol=tol)
+            errs[(dtype, sq)] = (out.float() - plain.float()).abs().max().item()
+            print(f"flash_attention {str(dtype)[6:]} q {tuple(q.shape)} kv "
+                  f"{tuple(k.shape)}: max_abs_err {errs[(dtype, sq)]:.3e} "
+                  f"(tol {tol})")
+    f32 = qkv(s, s, torch.float32)
+    f32_ms = _ms(lambda: flash_attention(*f32, causal=True))
+    del f32
+    q, k, v = qkv(s, s, torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True)
+    plain = ref.flash_attention(q, k, v, causal=True)
+    library = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+    pairs = _attention_pairs(s, s)
+    _record(results, "flash_attention", out, plain,
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: ref.flash_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            _nbytes(q, k, v, out), 4.0 * dh * pairs * b * hq,
+            peak_flops=PEAK_BF16_FLOPS,
+            shape={"b": b, "hq": hq, "hkv": hkv, "sq": s, "skv": s, "dh": dh,
+                   "dtype": "bfloat16", "causal": True},
+            bound_peak="989 TFLOP/s dense bf16 tensor cores, 3.35 TB/s",
+            f32_ms=f32_ms, f32_max_abs_err=errs[(torch.float32, s)],
+            cross_shape={"sq": s // 4, "skv": s},
+            cross_max_abs_err_bf16=errs[(torch.bfloat16, s // 4)],
+            cross_max_abs_err_f32=errs[(torch.float32, s // 4)],
+            library_max_abs_err=(library.float() - plain.float())
+            .abs().max().item())
+
+
+def lm_serve_phase(card: str) -> int:
+    """Serve qwen3-8b at full width through the Server; return the
+    flash_attention launches of that run."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import (build_lm_engine, drive_lm,
+                                          latency_percentiles, lm_report,
+                                          lm_requests, parser)
+    from repro_torch.serving import Completed
+
+    args = parser().parse_args(
+        ["--mode", "lm", "--arch", LM_ARCH, "--no-smoke",
+         "--prompt-len", str(max(LM_PROMPTS)),
+         "--new-tokens", str(LM_NEW_TOKENS), "--batch-size", "4"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_lm_engine(args)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    leaves = [engine.params["embed"], engine.params["final_norm"],
+              engine.params["lm_head"]]
+    for layer in engine.params["layers"]:
+        for part in layer.values():
+            leaves.extend(part.values() if isinstance(part, dict) else [part])
+    n_params = sum(t.numel() for t in leaves)
+    if n_params != cfg.num_params():
+        raise AssertionError(f"{n_params} parameters, config says "
+                             f"{cfg.num_params()}")
+    print(f"lm setup: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
+          f"{n_params / 1e9:.3f} B params, "
+          f"{_nbytes(*leaves) / 1e9:.2f} GB {cfg.param_dtype}, drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s; max_len {engine.max_len}")
+
+    requests = [r for i, plen in enumerate(LM_PROMPTS)
+                for r in lm_requests(cfg, LM_REQUESTS_PER_PROMPT, plen,
+                                     LM_NEW_TOKENS, seed=1 + i)]
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    server, outcomes = drive_lm(engine, requests, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _lib.launches()
+    done = [o for o in outcomes if isinstance(o, Completed)]
+    if len(done) != len(requests):
+        raise AssertionError(f"only {len(done)}/{len(requests)} LM requests "
+                             f"completed: {outcomes}")
+    for o in done:
+        toks = o.value
+        if toks.shape != (LM_NEW_TOKENS,) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"bad generated tokens {toks}")
+    batches = engine.stats["prefill_batches"]
+    expect = cfg.n_layers * batches
+    p50, p95, p99 = latency_percentiles(outcomes)
+    print(server.report())
+    print(f"lm serve ({card}): {len(done)}/{len(requests)} requests, "
+          f"{sum(len(o.value) for o in done)} tokens in {wall:.3f} s | "
+          f"{lm_report(engine)} | latency p50 {p50:.3f} ms, p95 {p95:.3f} "
+          f"ms, p99 {p99:.3f} ms | peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"lm serve: kernel launches {launches}")
+    if batches != len(LM_PROMPTS) or launches["flash_attention"] != expect:
+        raise AssertionError(
+            f"flash_attention launched {launches['flash_attention']} times "
+            f"over {batches} prefill batches; expected {cfg.n_layers} per "
+            f"batch over {len(LM_PROMPTS)} batches")
+
+    lm_prefill_parity(engine, requests, done, card)
+    lm_profile(engine, requests[-LM_REQUESTS_PER_PROMPT:], card)
+    return launches["flash_attention"]
+
+
+def lm_prefill_parity(engine, requests, served, card: str) -> None:
+    """Time each prompt length's batch through both backends; the shorter
+    batch's last-position logits must agree within the stated tolerance,
+    and its served first tokens must be their argmax."""
+    from repro_torch.models import lm
+
+    cfg, n = engine.cfg, LM_REQUESTS_PER_PROMPT
+    prefill_ms, logits = {}, {}
+    for i, plen in enumerate(LM_PROMPTS):
+        toks = torch.from_numpy(np.stack(
+            [r.prompt for r in requests[i * n:(i + 1) * n]])).to(engine.device)
+        for backend in ("cuda", "reference"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                out, _ = lm.prefill(engine.params, cfg, {"tokens": toks},
+                                    engine.max_len, backend=backend)
+            torch.cuda.synchronize()
+            prefill_ms[(plen, backend)] = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                logits[backend] = out[:, 0].float()
+            del out
+    print(f"lm prefill ({card}, host clock, synchronized): " + ", ".join(
+        f"{n}x{plen} {backend} {ms:.3f} ms"
+        for (plen, backend), ms in prefill_ms.items()))
+    got, exp = logits["cuda"], logits["reference"]
+    if got.shape != (n, cfg.vocab_size) or not torch.isfinite(got).all():
+        raise AssertionError(f"prefill logits {tuple(got.shape)} not finite "
+                             f"or of the wrong shape")
+    err = (got - exp).abs().max().item()
+    rel = ((got - exp).norm() / exp.norm()).item()
+    top1 = (got.argmax(-1) == exp.argmax(-1)).float().mean().item()
+    print(f"lm parity ({LM_ARCH}, {n} x {LM_PROMPTS[0]} prompt tokens, "
+          f"{cfg.param_dtype}): cuda vs reference prefill logits max_abs_err "
+          f"{err:.4e} (tol {LM_LOGIT_ATOL}), rel norm {rel:.4e} (tol "
+          f"{LM_LOGIT_REL}), top-1 agreement {top1:.2f}, |logit| max "
+          f"{exp.abs().max().item():.3f}")
+    if err > LM_LOGIT_ATOL or rel > LM_LOGIT_REL:
+        raise AssertionError("cuda prefill logits disagree with the "
+                             "reference backend")
+    served_first = np.array([o.value[0] for o in served[:n]])
+    if not (served_first == got.argmax(-1).cpu().numpy()).all():
+        raise AssertionError("served first tokens differ from the argmax "
+                             "of the same prefill")
+
+
+def _profile(fn, label: str, card: str) -> None:
+    """Run ``fn`` once under ``torch.profiler``; print wall time, the
+    summed kernel time (the device's busy time: one stream), the idle
+    share, the kernel launch count and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    if not kernels:
+        print(f"lm profile {label}: wall {wall_ms:.3f} ms; device time not "
+              f"measured (the profiler saw no kernels)")
+        return
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    print(f"lm profile {label} ({card}, under the profiler): wall "
+          f"{wall_ms:.3f} ms, kernels {busy_ms:.3f} ms over {launches} "
+          f"launches, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}")
+
+
+def lm_profile(engine, batch, card: str) -> None:
+    """Profile one prefill of ``batch`` and one decode step after it."""
+    from repro_torch.models import lm
+
+    toks = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
+        engine.device)
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = lm.prefill(
+            engine.params, engine.cfg, {"tokens": toks}, engine.max_len)
+
+    def decode():
+        nxt = state["logits"][:, 0].argmax(-1)[:, None]
+        lm.decode_step(engine.params, engine.cfg,
+                       {"tokens": nxt, "pos": toks.shape[1]},
+                       state["caches"])
+
+    with torch.inference_mode():
+        _profile(prefill, f"prefill {toks.shape[0]}x{toks.shape[1]}", card)
+        _profile(decode, f"decode step (batch {toks.shape[0]})", card)
+
+
 def main() -> None:
-    device_check()
+    card = device_check()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _lib
     from repro_torch.launch.serve import build_engine, parser
 
     build(_lib)
     args = parser().parse_args(
-        ["--graphs", "pubmed", "--models", ",".join(ARCHS), "--scale", "1.0",
-         "--hidden", "16", "--layers", "2", "--shard-n", "512",
-         "--num-requests", "48"])
+        ["--mode", "gnn", "--graphs", "pubmed", "--models", ",".join(ARCHS),
+         "--scale", "1.0", "--hidden", "16", "--layers", "2",
+         "--shard-n", "512", "--num-requests", "48"])
     t0 = time.perf_counter()
     engine, datasets = build_engine(args)
     ds = datasets["pubmed"]
     print(f"setup: engine + Pubmed in {time.perf_counter() - t0:.1f} s")
     kernels = kernel_phase(engine, ds)
-    launches = serve_phase(engine, ds, args)
+    launches = serve_phase(engine, ds, args, kernels)
     for name, row in kernels.items():
         row["launches"] = launches[name]
+    del engine, datasets, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    attention_kernel_phase(torch.device("cuda"), kernels)
+    kernels["flash_attention"]["launches"] = lm_serve_phase(card)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,18 +28,20 @@ import torch
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).with_name("_build")
 SOURCES = ("shard_spmm.cu", "fused_gnn.cu", "dense_engine.cu",
-           "seg_gather.cu", "errors.cu")
+           "seg_gather.cu", "flash_attention.cu", "errors.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the launchers (C symbol = name + "_launch") and their argument kinds:
-# "p" a pointer (tensor or None), "i" a C int
+# "p" a pointer (tensor or None), "i" a C int, "f" a C float
 KERNELS = {
     "shard_spmm": "pppiiii",
     "fused_gnn": "ppppiiiii",
     "dense_engine": "ppppiiii",
     "seg_gather": "pppppiiiiii",
+    "flash_attention": "ppppiiiiiifiii",
 }
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -118,8 +120,7 @@ def lib() -> ctypes.CDLL:
             handle = ctypes.CDLL(str(build()))
             for name, kinds in KERNELS.items():
                 fn = getattr(handle, name + "_launch")
-                fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
-                               for k in kinds] + [ctypes.c_void_p]
+                fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             handle.gnnk_error_string.argtypes = [ctypes.c_int]
             handle.gnnk_error_string.restype = ctypes.c_char_p
@@ -160,6 +161,8 @@ def launch(kernel: str, *args, device: torch.device) -> None:
     for kind, a in zip(kinds, args):
         if kind == "p":
             c_args.append(None if a is None else a.data_ptr())
+        elif kind == "f":
+            c_args.append(float(a))
         else:
             c_args.append(int(a))
     handle = lib()

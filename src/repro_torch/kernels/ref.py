@@ -83,3 +83,33 @@ def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
         out = torch.zeros((s_dst * n, d), device=h.device)
         out.index_add_(0, dst, vals)
     return out.reshape(s_dst, n, d).to(h.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention: softmax(q kᵀ · scale + mask) v, in float32.
+
+    q (B, Hq, Sq, Dh), k/v (B, Hkv, Skv, Dh) with Hq % Hkv == 0 (GQA:
+    query head h reads kv head h // (Hq / Hkv)). Query row i sits at
+    position Skv - Sq + i; causal keeps keys at or before it, ``window``
+    keeps keys within [pos - window + 1, pos]. A row with no key left
+    gives 0. The result has q's dtype.
+    """
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, sq, dh)
+    s = scale if scale is not None else dh ** -0.5
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * s
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, sq, dh).to(q.dtype)

@@ -7,9 +7,6 @@ Two backends, with the reference package's op names:
               CUDA tensors it launches the kernel or raises.
   reference   the plain PyTorch versions (:mod:`repro_torch.kernels.ref`)
               on whatever device the tensors are on.
-
-The op ``attention`` of the reference registry has no kernel here yet
-(ROADMAP.md, Queue 2).
 """
 from __future__ import annotations
 
@@ -17,6 +14,7 @@ from typing import Protocol, runtime_checkable
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dense_engine import dense_engine_matmul
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_gnn import fused_gnn_layer
 from repro_torch.kernels.seg_gather import seg_gather_aggregate
 from repro_torch.kernels.shard_spmm import shard_spmm
@@ -24,7 +22,7 @@ from repro_torch.kernels.shard_spmm import shard_spmm
 DEFAULT_BACKEND = "cuda"
 
 OP_NAMES = ("dense_matmul", "graph_aggregate", "fused_aggregate_extract",
-            "gather_aggregate")
+            "gather_aggregate", "attention")
 
 
 @runtime_checkable
@@ -51,6 +49,11 @@ class KernelBackend(Protocol):
         """Edge-list (gather/scatter) aggregation; max or sum."""
         ...
 
+    def attention(self, q, k, v, *, causal: bool = True,
+                  window: int | None = None, scale: float | None = None):
+        """Attention; q (B,Hq,Sq,Dh), k/v (B,Hkv,Skv,Dh)."""
+        ...
+
 
 class CudaBackend:
     """The CUDA kernels (plain versions for CPU tensors)."""
@@ -70,6 +73,10 @@ class CudaBackend:
                          op="max"):
         return seg_gather_aggregate(edge_src, edge_dst, edge_valid, h, op=op)
 
+    def attention(self, q, k, v, *, causal=True, window=None, scale=None):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
 
 class ReferenceBackend:
     """The plain PyTorch versions, on any device."""
@@ -88,6 +95,10 @@ class ReferenceBackend:
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
                          op="max"):
         return ref.seg_gather(edge_src, edge_dst, edge_valid, h, op=op)
+
+    def attention(self, q, k, v, *, causal=True, window=None, scale=None):
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   window=window)
 
 
 _REGISTRY: dict[str, KernelBackend] = {

@@ -1,15 +1,26 @@
-"""GNN serving launcher: the Server over a GNNServeEngine, on the card.
+"""Serving launcher: one Server path for both engines, on the card.
 
 Requests go in as tickets with optional priority/deadline, micro-batches
 form under the hybrid max-batch-size + max-wait policy, and outcomes come
 back typed (Completed / Rejected / Expired / Failed) with per-request
-queue and engine latency::
+queue and engine latency. The LM ``ServeEngine`` streams by prompt
+length, the ``GNNServeEngine`` by (model, graph).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --graphs pubmed \
-        --models gcn,sage_mean,sage_max
+LM generation (default; ``--smoke`` is on by default, ``--no-smoke``
+serves the full-width model with random weights)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch qwen3-8b --no-smoke --num-requests 8 --prompt-len 1024 \
+        --new-tokens 16
+
+GNN node classification::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode gnn \
+        --graphs pubmed --models gcn,sage_mean,sage_max
 
 ``--device cpu`` runs the plain PyTorch versions instead (for a quick
-check on a machine without a card; use a small ``--scale``).
+check on a machine without a card; use ``--smoke`` LMs and a small
+``--scale``).
 """
 from __future__ import annotations
 
@@ -17,11 +28,16 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.gnn.models import ZooSpec
 from repro_torch.graphs.datasets import DATASETS, make_dataset
+from repro_torch.models import lm
+from repro_torch.runtime.api import resolve_device
 from repro_torch.serving import (Completed, GNNServeEngine, NodeRequest,
-                                 Rejected, SchedulerConfig, Server)
+                                 Rejected, Request, SchedulerConfig,
+                                 ServeEngine, Server)
 
 
 def _submit(server: Server, payload, stats: dict, **kw):
@@ -74,13 +90,17 @@ def build_engine(args) -> tuple[GNNServeEngine, dict]:
     return engine, datasets
 
 
+def make_server(engine, args) -> Server:
+    return Server(engine, SchedulerConfig(
+        max_batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
+        max_queue_depth=args.queue_depth))
+
+
 def drive(engine: GNNServeEngine, datasets: dict, models: list[str],
           args) -> tuple[Server, list]:
     """Submit ``args.num_requests`` random node batches through a Server
     and drain it; returns the server and the outcomes in order."""
-    server = Server(engine, SchedulerConfig(
-        max_batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
-        max_queue_depth=args.queue_depth))
+    server = make_server(engine, args)
     graphs = list(datasets)
     rng = np.random.default_rng(1)
     stats: dict = {}
@@ -98,21 +118,79 @@ def drive(engine: GNNServeEngine, datasets: dict, models: list[str],
     return server, [t.result() for t in tickets]
 
 
+def build_lm_engine(args) -> ServeEngine:
+    """A ServeEngine over ``args.arch`` (its smoke config unless
+    ``--no-smoke``) with random weights drawn on the device from seed 0;
+    max_len fits ``--prompt-len`` + ``--new-tokens``."""
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device).manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    return ServeEngine(cfg, params,
+                       max_len=args.prompt_len + args.new_tokens + 1,
+                       device=device, backend=args.backend)
+
+
+def lm_requests(cfg, n: int, prompt_len: int, new_tokens: int,
+                temperature: float = 0.0, seed: int = 0) -> list[Request]:
+    """``n`` requests with random prompts of ``prompt_len`` tokens."""
+    rng = np.random.default_rng(seed)
+    return [Request(rng.integers(0, cfg.vocab_size, prompt_len)
+                    .astype(np.int32), max_new_tokens=new_tokens,
+                    temperature=temperature) for _ in range(n)]
+
+
+def drive_lm(engine: ServeEngine, requests: list[Request],
+             args) -> tuple[Server, list]:
+    """Submit ``requests`` through a Server and drain it; returns the
+    server and the outcomes in order."""
+    server = make_server(engine, args)
+    stats: dict = {}
+    tickets = [_submit(server, r, stats, deadline_ms=args.deadline_ms)
+               for r in requests]
+    server.drain()
+    return server, [t.result() for t in tickets]
+
+
+def lm_report(engine: ServeEngine) -> str:
+    """Prefill ms per batch, decode ms per step and decode tok/s."""
+    st = engine.stats
+    pre = st["prefill_ms_total"] / max(st["prefill_batches"], 1)
+    dec = st["decode_ms_total"] / max(st["decode_steps"], 1)
+    tok_s = st["decode_tokens"] / max(st["decode_ms_total"], 1e-9) * 1e3
+    return (f"prefill {st['prefill_batches']} batches, {pre:.3f} ms/batch "
+            f"({st['prefill_tokens']} prompt tokens) | decode "
+            f"{st['decode_steps']} steps, {dec:.3f} ms/step, {tok_s:.1f} "
+            f"tok/s")
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--graphs", default="pubmed")
-    ap.add_argument("--models", default="gcn,sage_mean,sage_max")
+    ap.add_argument("--mode", choices=["lm", "gnn"], default="lm")
     ap.add_argument("--backend", default=None, choices=["cuda", "reference"],
-                    help="kernel backend pinned into each Executable "
-                         "(default: cuda)")
+                    help="kernel backend (default: cuda)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions)")
+    ap.add_argument("--num-requests", type=int, default=8)
+    # LM path
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the arch's smoke config (--no-smoke: full "
+                         "width)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    # GNN path
+    ap.add_argument("--graphs", default="pubmed")
+    ap.add_argument("--models", default="gcn,sage_mean,sage_max")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--hidden", type=int, default=16)
     ap.add_argument("--shard-n", type=int, default=512)
     ap.add_argument("--scale", type=float, default=1.0)
-    ap.add_argument("--num-requests", type=int, default=48)
+    ap.add_argument("--nodes-per-req", type=int, default=8)
+    # shared scheduler policy
     ap.add_argument("--batch-size", type=int, default=4,
                     help="scheduler max micro-batch size")
     ap.add_argument("--max-wait-ms", type=float, default=0.0,
@@ -120,14 +198,29 @@ def parser() -> argparse.ArgumentParser:
                          "batch (0 = dispatch immediately)")
     ap.add_argument("--queue-depth", type=int, default=256,
                     help="per-stream admission bound (backpressure)")
-    ap.add_argument("--nodes-per-req", type=int, default=8)
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request deadline; queued past it -> Expired")
     return ap
 
 
-def main(argv=None) -> None:
-    args = parser().parse_args(argv)
+def _serve_lm(args) -> None:
+    engine = build_lm_engine(args)
+    requests = lm_requests(engine.cfg, args.num_requests, args.prompt_len,
+                           args.new_tokens, args.temperature)
+    t0 = time.perf_counter()
+    server, outcomes = drive_lm(engine, requests, args)
+    dt = time.perf_counter() - t0
+    done = [o.value for o in outcomes if isinstance(o, Completed)]
+    served = sum(len(v) for v in done)
+    print(server.report())
+    _print_latency(outcomes)
+    print(lm_report(engine))
+    print(f"served {len(done)}/{len(outcomes)} requests, {served} tokens in "
+          f"{dt:.2f}s ({served / dt:.1f} tok/s) with {engine.cfg.name} on "
+          f"{engine.device}")
+
+
+def _serve_gnn(args) -> None:
     models = [m.strip() for m in args.models.split(",") if m.strip()]
     engine, datasets = build_engine(args)
     t0 = time.perf_counter()
@@ -140,12 +233,24 @@ def main(argv=None) -> None:
               f"(p={np.round(p.probs[:5], 3).tolist()})")
     print(engine.cache_report())
     print(server.report())
+    _print_latency(outcomes)
+    print(f"served {len(done)}/{len(outcomes)} requests in {dt:.2f}s "
+          f"on {engine.device}")
+
+
+def _print_latency(outcomes) -> None:
     pct = latency_percentiles(outcomes)
     if pct is not None:
         print(f"latency p50 {pct[0]:.2f} ms, p95 {pct[1]:.2f} ms, "
               f"p99 {pct[2]:.2f} ms")
-    print(f"served {len(done)}/{len(outcomes)} requests in {dt:.2f}s "
-          f"on {engine.device}")
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    if args.mode == "gnn":
+        _serve_gnn(args)
+    else:
+        _serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,9 @@ def _forbidden(module: str) -> bool:
 
 def test_scan_covers_the_port():
     names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "forward.py", "registry.py", "serve.py"} <= names
+    assert {"chip_smoke.py", "forward.py", "registry.py", "serve.py",
+            "lm.py", "attention.py", "flash_attention.py", "engine.py",
+            "qwen3_8b.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -76,3 +78,15 @@ def test_engine_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         GNNServeEngine()
     assert GNNServeEngine(device="cpu").device.type == "cpu"
+
+
+def test_lm_engine_without_device_raises_without_cuda(no_cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_smoke("qwen3-8b")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"

@@ -16,13 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _lib, ref
+from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels import dense_engine as t_dense
+from repro_torch.kernels import flash_attention as t_flash
 from repro_torch.kernels import fused_gnn as t_fused
 from repro_torch.kernels import seg_gather as t_gather
 from repro_torch.kernels import shard_spmm as t_spmm
 
 TOL = dict(atol=1e-4, rtol=1e-4)   # float32 products, as tests/test_kernels.py
+# attention, as tests/test_kernels.py::test_flash_attention: float32
+# inputs 2e-4; bfloat16 inputs 8e-2 (one bf16 rounding of outputs of
+# magnitude up to ~4 is 1.6e-2 apart, plus the inputs' own rounding)
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
 
 
 @pytest.fixture
@@ -30,14 +35,16 @@ def jx():
     """The reference package's Pallas kernels (interpret mode on the CPU)."""
     pytest.importorskip("jax")
     from repro.kernels import registry
+    from repro.kernels import ref as jref
     from repro.kernels.dense_engine import dense_engine_matmul
+    from repro.kernels.flash_attention import flash_attention
     from repro.kernels.fused_gnn import fused_gnn_layer
     from repro.kernels.seg_gather import seg_gather_aggregate
     from repro.kernels.shard_spmm import shard_spmm
     return types.SimpleNamespace(
         dense=dense_engine_matmul, fused=fused_gnn_layer,
-        gather=seg_gather_aggregate, spmm=shard_spmm,
-        pallas=registry.get_backend("pallas"))
+        gather=seg_gather_aggregate, spmm=shard_spmm, flash=flash_attention,
+        ref=jref, pallas=registry.get_backend("pallas"))
 
 
 def _rng(seed):
@@ -169,6 +176,72 @@ def test_seg_gather_empty_destination_is_zero(jx, op):
     np.testing.assert_allclose(out, exp, **TOL)
 
 
+def _qkv(r, b, hq, hkv, sq, skv, dh):
+    return (r.standard_normal((b, hq, sq, dh)).astype(np.float32),
+            r.standard_normal((b, hkv, skv, dh)).astype(np.float32),
+            r.standard_normal((b, hkv, skv, dh)).astype(np.float32))
+
+
+def _jax_dtype(dtype):
+    import jax.numpy as jnp
+    return jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,window", [
+    (1, 4, 4, 64, 64, 32, None),
+    (2, 4, 2, 64, 64, 32, None),     # GQA
+    (1, 2, 1, 32, 128, 16, None),    # cross lengths (q suffix of kv)
+    (1, 4, 4, 128, 128, 32, 48),     # local window
+])
+def test_flash_attention_matches_pallas(jx, dtype, b, hq, hkv, sq, skv, dh,
+                                        window):
+    """The cases of tests/test_kernels.py::test_flash_attention; both sides
+    get the same inputs rounded to ``dtype``."""
+    import jax.numpy as jnp
+    q, k, v = _qkv(_rng(sq + skv + dh), b, hq, hkv, sq, skv, dh)
+    jd = _jax_dtype(dtype)
+    exp = jx.flash(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+                   causal=True, window=window, bq=32, bk=32, interpret=True)
+    out = t_flash.flash_attention(_t(q).to(dtype), _t(k).to(dtype),
+                                  _t(v).to(dtype), causal=True, window=window)
+    assert out.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,window", [
+    (2, 4, 2, 70, 70, 16, None),     # ragged: no multiple of 64 (or 32)
+    (1, 6, 3, 37, 100, 24, None),    # ragged, q suffix of kv
+    (1, 4, 2, 70, 70, 16, 16),       # ragged window
+    (1, 2, 1, 80, 50, 16, None),     # Sq > Skv: early rows see no key
+])
+def test_flash_attention_ragged_matches_reference_oracle(
+        jx, causal, b, hq, hkv, sq, skv, dh, window):
+    """Lengths the Pallas kernel cannot take (the reference backend falls
+    back to its oracle there): the plain version against that oracle."""
+    q, k, v = _qkv(_rng(sq * skv + dh), b, hq, hkv, sq, skv, dh)
+    exp = np.asarray(jx.ref.flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    out = t_flash.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                                  window=window).numpy()
+    np.testing.assert_allclose(out, exp, atol=2e-4, rtol=2e-4)
+    if causal and sq > skv:          # rows with no key left are 0 on both
+        assert (out[:, :, :sq - skv] == 0).all()
+        assert (exp[:, :, :sq - skv] == 0).all()
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_attention_op_dispatches_to_both_backends(backend):
+    r = _rng(16)
+    q, k, v = (_t(a) for a in _qkv(r, 1, 4, 2, 20, 20, 8))
+    out = ops.attention(q, k, v, window=5, backend=backend)
+    torch.testing.assert_close(
+        out, ref.flash_attention(q, k, v, window=5), atol=0, rtol=0)
+
+
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
     """Only CPU tensors take the plain version; a tensor elsewhere (here a
     meta tensor) raises rather than quietly running some other path."""
@@ -289,3 +362,44 @@ def test_cuda_seg_gather_matches_plain(cuda, op):
         assert torch.equal(out, plain)
     else:
         torch.testing.assert_close(out, plain, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window", [
+    (2, 4, 2, 70, 70, 16, True, None),     # ragged, GQA, dh 16
+    (1, 8, 2, 129, 200, 64, True, None),   # q suffix of kv, ragged, dh 64
+    (1, 4, 1, 100, 60, 128, True, None),   # Sq > Skv: rows with no key -> 0
+    (2, 4, 4, 150, 150, 128, True, 33),    # window, dh 128
+    (1, 4, 2, 70, 90, 80, False, None),    # not causal, dh no power of two
+    (1, 2, 2, 64, 64, 32, True, 0),        # window 0: every key masked
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, sq, skv,
+                                            dh, causal, window):
+    r = _rng(26)
+    q, k, v = (_t(a).to(cuda, dtype)
+               for a in _qkv(r, b, hq, hkv, sq, skv, dh))
+    out = _counted("flash_attention", lambda: t_flash.flash_attention(
+        q, k, v, causal=causal, window=window))
+    plain = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    if causal and sq > skv:
+        assert (out[:, :, :sq - skv] == 0).all()
+    if window == 0:
+        assert (out == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 2, 8, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_flash.flash_attention(q, q, q)
+    q = torch.zeros((1, 3, 8, 16), device=cuda)
+    k = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        t_flash.flash_attention(q, k, k)
+    q = torch.zeros((1, 2, 8, 160), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        t_flash.flash_attention(q, q, q)
