@@ -16,20 +16,27 @@ scratch. In order:
    the card at the GNN path's full-scale Pubmed shapes (atol = rtol = 1e-4
    for the float32 products, exact for max, 1e-5 for sum), timed with
    CUDA events beside the plain version, one PyTorch library call and the
-   card's bound;
+   card's bound; seg_gather is timed as the serve path calls it (with the
+   graph's gather index) and standalone (index built in the call), the
+   index build alone, and the library path also with its index kept;
 4. GNN serve phase: GNNServeEngine + Server over full-scale Pubmed with
    gcn, sage_mean and sage_max (hidden 16, 2 layers); every GNN kernel's
    launch count must rise; each model's full-graph logits must match the
    same model on the ``reference`` backend within 1e-4;
-5. attention kernel phase: flash_attention against its plain version at
-   the LM path's prefill shape (B 4, Hq 32, Hkv 8, S 2048, dh 128,
-   causal) in bfloat16 (8e-2) and float32 (2e-4), and at an Sq < Skv
-   shape, timed beside the plain version and
-   ``scaled_dot_product_attention``;
+5. attention kernel phase: flash_attention's two kernels against the
+   plain version: the tensor-core kernel (the bf16 route) at the LM
+   path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
+   causal), at an Sq < Skv shape and at a ragged S 2000 (8e-2 max abs,
+   5e-3 relative norm); the CUDA-core kernel (the float32 route) at S
+   2048 and Sq < Skv (2e-4, 1e-5), and on the bf16 inputs it is timed on
+   (8e-2, 5e-3). Both kernels, the CUDA-core one also on the bf16
+   inputs, are timed beside the plain version and
+   ``scaled_dot_product_attention`` at both prompt lengths;
 6. LM serve phase: qwen3-8b at full width (bf16, random weights from a
    seed) behind the Server (max batch 4): 4 requests with 1024-token and 4
    with 2048-token prompts, 16 new tokens each, greedy; all must complete,
-   flash_attention must launch once per layer per prefill batch, and one
+   the tensor-core flash_attention kernel must launch once per layer per
+   prefill batch (and the CUDA-core one never), and one
    batch's prefill logits must match the ``reference`` backend within
    ``LM_LOGIT_ATOL``; each batch's prefill is timed on both backends, and
    one prefill and one decode step are traced with ``torch.profiler``
@@ -81,6 +88,18 @@ LM_NEW_TOKENS = 16
 # relative norm; an unmasked or misplaced key would be off by O(1).
 LM_LOGIT_ATOL = 0.25
 LM_LOGIT_REL = 5e-2
+# flash_attention against its plain version: max abs (atol = rtol, as the
+# reference's own tests) and the relative norm ||out - plain|| / ||plain||.
+# A causal row i averages ~i + 1 random values and is ~(i + 1)^-1/2 small,
+# so the max-abs limit is set by the first rows and would pass a fault
+# that only touches late rows (such as O not rescaled when the running
+# max rises); the relative norm weighs every row by its size. bf16: one
+# rounding of the output and one of P (as the TPU kernel) each add
+# ~2^-9/sqrt(3) relative. The card reads 2.1e-3 to 2.4e-3 at the shapes
+# below and 0.40 with O not rescaled by the running max (PERF.md); 5e-3
+# sits ~2x above the one and ~80x below the other. float32: 1.1e-6 read.
+ATTN_ATOL = {torch.bfloat16: 8e-2, torch.float32: 2e-4}
+ATTN_REL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -114,13 +133,14 @@ def _nbytes(*tensors: torch.Tensor) -> int:
 
 
 def _record(results: dict, name, out, plain, kernel_fn, plain_fn, library_fn,
-            nbytes, flops, peak_flops=PEAK_F32_FLOPS, **extra) -> None:
+            nbytes, flops, peak_flops=PEAK_F32_FLOPS, source=None,
+            **extra) -> None:
     """Time a kernel beside its plain version and library call; add its
     row of the ``kernels`` line to ``results``."""
     err = (out.float() - plain.float()).abs().max().item()
     bound, by = _bound(nbytes, flops, peak_flops)
     row = {"name": name, "route": "cuda",
-           "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+           "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
            "replaces": REPLACES[name], "launches": 0,
            "max_abs_err": err, "ms": _ms(kernel_fn),
            "plain_ms": _ms(plain_fn), "bound_ms": bound,
@@ -132,6 +152,22 @@ def _record(results: dict, name, out, plain, kernel_fn, plain_fn, library_fn,
           f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} library_ms "
           f"{row['library_ms']:.3f} bound_ms {bound:.3f} ({by}) "
           f"{extra or ''}")
+
+
+def _attention_check(label: str, out, plain, dtype) -> tuple[float, float]:
+    """Hold a flash_attention output to its plain version within
+    ``ATTN_ATOL`` and ``ATTN_REL``; return (max abs err, relative norm)."""
+    got, exp = out.float(), plain.float()
+    err = (got - exp).abs().max().item()
+    rel = ((got - exp).norm() / exp.norm().clamp_min(1e-30)).item()
+    print(f"{label}: max_abs_err {err:.3e} (tol {ATTN_ATOL[dtype]}), rel "
+          f"norm {rel:.3e} (tol {ATTN_REL[dtype]})")
+    torch.testing.assert_close(got, exp, atol=ATTN_ATOL[dtype],
+                               rtol=ATTN_ATOL[dtype])
+    if rel > ATTN_REL[dtype]:
+        raise AssertionError(f"{label}: relative norm error {rel:.3e} above "
+                             f"{ATTN_REL[dtype]}")
+    return err, rel
 
 
 def device_check() -> str:
@@ -237,45 +273,89 @@ def kernel_phase(engine, ds) -> dict:
                            "bound_ms": second_bound,
                            "max_abs_err": (out2 - plain2).abs().max().item()})
 
-    # seg_gather: sage_max's edge lists; max must be exact, sum within 1e-5
+    # seg_gather: sage_max's edge lists, as the serve path calls it (with
+    # the graph's gather index) and standalone (index built in the call);
+    # max must be exact, sum within 1e-5
     gt = gts["sage_max"]
+    index = gt.gather_index
     z = torch.relu(x @ wp + bp).reshape(s, n, d)
-    out = seg_gather.seg_gather_aggregate(gt.edge_src, gt.edge_dst,
-                                          gt.edge_valid, z, op="max")
-    plain = ref.seg_gather(gt.edge_src, gt.edge_dst, gt.edge_valid, z,
-                           op="max")
-    if not torch.equal(out, plain):
-        raise AssertionError(
-            f"seg_gather max differs from its plain version: max abs err "
-            f"{(out - plain).abs().max().item():.3e}")
-    out_sum = seg_gather.seg_gather_aggregate(gt.edge_src, gt.edge_dst,
-                                              gt.edge_valid, z, op="sum")
-    plain_sum = ref.seg_gather(gt.edge_src, gt.edge_dst, gt.edge_valid, z,
-                               op="sum")
-    torch.testing.assert_close(out_sum, plain_sum, atol=1e-5, rtol=1e-5)
+    edges = (gt.edge_src, gt.edge_dst, gt.edge_valid)
+    plain = ref.seg_gather(*edges, z, op="max")
+    # sum's plain version on the CPU, which adds in slot order as the
+    # kernel does; on the card its index_add_ adds in any order
+    plain_sum = ref.seg_gather(*(t.cpu() for t in edges), z.cpu(),
+                               op="sum").to(dev)
+    out = out_sum = None
+    for idx in (index, None):
+        out = seg_gather.seg_gather_aggregate(*edges, z, op="max", index=idx)
+        if not torch.equal(out, plain):
+            raise AssertionError(
+                f"seg_gather max (index {'built' if idx is None else 'kept'}) "
+                f"differs from its plain version: max abs err "
+                f"{(out - plain).abs().max().item():.3e}")
+        out_sum = seg_gather.seg_gather_aggregate(*edges, z, op="sum",
+                                                  index=idx)
+        torch.testing.assert_close(out_sum, plain_sum, atol=1e-5, rtol=1e-5)
     valid = int(gt.edge_valid.sum().item())
+    if int(index.row_ptr[-1].item()) != valid:
+        raise AssertionError(f"gather index holds {index.row_ptr[-1].item()}"
+                             f" edges, the edge lists {valid}")
+    # the index build and the standalone call read nonzero's count back to
+    # the host, so their times follow the host's speed: five rounds each,
+    # interleaved, the median kept
+    index_runs, standalone_runs = [], []
+    for _ in range(5):
+        index_runs.append(_ms(lambda: seg_gather.gather_index(*edges, n)))
+        standalone_runs.append(_ms(lambda: seg_gather.seg_gather_aggregate(
+            *edges, z, op="max")))
+    index_ms = float(np.median(index_runs))
+    standalone_ms = float(np.median(standalone_runs))
+    print(f"seg_gather: gather index build {index_ms:.3f} ms "
+          f"({valid} edges, {rows} rows; rounds "
+          f"{', '.join(f'{t:.3f}' for t in index_runs)}); standalone call "
+          f"(index built in the call) {standalone_ms:.3f} ms (rounds "
+          f"{', '.join(f'{t:.3f}' for t in standalone_runs)})")
 
-    def library():
-        # the whole function from the same inputs: valid slots -> global
-        # ids, gather of the source rows, one scatter_reduce, empty -> 0
+    def library_index():
+        # valid slots -> global destination (expanded over D) and source ids
         ii, jj, ee = gt.edge_valid.nonzero(as_tuple=True)
         dst = (ii * n + gt.edge_dst[ii, jj, ee].long())[:, None].expand(-1, d)
-        src_rows = z.reshape(-1, d).index_select(
-            0, jj * n + gt.edge_src[ii, jj, ee].long())
+        return dst, jj * n + gt.edge_src[ii, jj, ee].long()
+
+    def library_reduce(dst, src):
+        # gather of the source rows, one scatter_reduce, empty -> 0
         acc = torch.full((rows, d), float("-inf"), device=dev).scatter_reduce_(
-            0, dst, src_rows, reduce="amax", include_self=True)
+            0, dst, z.reshape(-1, d).index_select(0, src), reduce="amax",
+            include_self=True)
         return torch.where(torch.isfinite(acc), acc, 0.0)
 
+    def library():
+        # the whole function from the same inputs, as the kernel's
+        # standalone call
+        return library_reduce(*library_index())
+
+    # the library path with its index kept, as the kernel's serve path
+    kept = library_index()
+    if not torch.equal(library_reduce(*kept).reshape(s, n, d), plain):
+        raise AssertionError("the library path differs from the plain "
+                             "version")
+    library_kept_index_ms = _ms(lambda: library_reduce(*kept))
+
     record("seg_gather", out, plain,
-           lambda: seg_gather.seg_gather_aggregate(
-               gt.edge_src, gt.edge_dst, gt.edge_valid, z, op="max"),
-           lambda: ref.seg_gather(gt.edge_src, gt.edge_dst, gt.edge_valid,
-                                  z, op="max"),
+           lambda: seg_gather.seg_gather_aggregate(*edges, z, op="max",
+                                                   index=index),
+           lambda: ref.seg_gather(*edges, z, op="max"),
            library,
            _nbytes(gt.edge_src, gt.edge_dst, gt.edge_valid, z, out),
            float(valid * d),
            valid_edges=valid, edge_slots=int(gt.edge_valid.numel()),
-           sum_max_abs_err=(out_sum - plain_sum).abs().max().item())
+           sum_max_abs_err=(out_sum - plain_sum).abs().max().item(),
+           standalone_ms=standalone_ms, index_build_ms=index_ms,
+           standalone_ms_rounds=standalone_runs,
+           index_build_ms_rounds=index_runs,
+           library_kept_index_ms=library_kept_index_ms,
+           index_bytes=_nbytes(index.row_ptr, index.src),
+           source_row_bytes=4.0 * valid * d)
     return results
 
 
@@ -343,38 +423,70 @@ def _attention_pairs(sq: int, skv: int) -> int:
 
 
 def attention_kernel_phase(dev, results: dict) -> None:
-    """flash_attention against its plain version at the LM prefill shape
-    (bf16 and f32) and at an Sq < Skv shape; timed in bf16 beside the
-    plain version and ``scaled_dot_product_attention``."""
+    """flash_attention's two kernels against the plain version: the
+    tensor-core kernel (bf16) at the LM prefill shapes, at Sq < Skv and at
+    a ragged S; the CUDA-core kernel (f32) at S 2048 and Sq < Skv. Both
+    kernels (the CUDA-core one on bf16 and f32 inputs), the plain version
+    and ``scaled_dot_product_attention`` are timed at both prompt
+    lengths."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import _launch, _route
     from repro_torch.kernels.flash_attention import flash_attention
 
     gen = torch.Generator(dev).manual_seed(0)
     b, hq, hkv, dh = 4, 32, 8, 128
     s = max(LM_PROMPTS)
+    if _route(torch.bfloat16, dh) != "flash_attention_tc":
+        raise AssertionError("bf16 at dh 128 is not routed to the "
+                             "tensor-core kernel")
 
     def qkv(sq, skv, dtype):
         return (torch.randn((b, hq, sq, dh), generator=gen, device=dev).to(dtype),
                 torch.randn((b, hkv, skv, dh), generator=gen, device=dev).to(dtype),
                 torch.randn((b, hkv, skv, dh), generator=gen, device=dev).to(dtype))
 
-    errs = {}
-    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 8e-2)):
-        for sq, skv in ((s, s), (s // 4, s)):
-            q, k, v = qkv(sq, skv, dtype)
-            out = flash_attention(q, k, v, causal=True)
-            plain = ref.flash_attention(q, k, v, causal=True)
-            torch.testing.assert_close(out.float(), plain.float(), atol=tol,
-                                       rtol=tol)
-            errs[(dtype, sq)] = (out.float() - plain.float()).abs().max().item()
-            print(f"flash_attention {str(dtype)[6:]} q {tuple(q.shape)} kv "
-                  f"{tuple(k.shape)}: max_abs_err {errs[(dtype, sq)]:.3e} "
-                  f"(tol {tol})")
-    f32 = qkv(s, s, torch.float32)
-    f32_ms = _ms(lambda: flash_attention(*f32, causal=True))
-    del f32
+    errs, rels = {}, {}
+    cases = [(torch.bfloat16, sq, skv) for sq, skv in
+             ((s, s), (min(LM_PROMPTS), min(LM_PROMPTS)), (s // 4, s),
+              (2000, 2000))]
+    cases += [(torch.float32, s, s), (torch.float32, s // 4, s)]
+    for dtype, sq, skv in cases:
+        q, k, v = qkv(sq, skv, dtype)
+        out = flash_attention(q, k, v, causal=True)
+        plain = ref.flash_attention(q, k, v, causal=True)
+        errs[(dtype, sq, skv)], rels[(dtype, sq, skv)] = _attention_check(
+            f"flash_attention {str(dtype)[6:]} ({_route(dtype, dh)}) q "
+            f"{tuple(q.shape)} kv {tuple(k.shape)}", out, plain, dtype)
+        del q, k, v, out, plain
+
+    timings, cuda_core_bf16 = {}, {}
+    for plen in LM_PROMPTS:
+        q, k, v = qkv(plen, plen, torch.bfloat16)
+        f32 = tuple(t.float() for t in (q, k, v))
+        # the CUDA-core kernel on the bf16 inputs it is timed on
+        cuda_core_bf16[plen] = _attention_check(
+            f"flash_attention bfloat16 (flash_attention, forced) q "
+            f"{tuple(q.shape)} kv {tuple(k.shape)}",
+            _launch("flash_attention", q, k, v, causal=True),
+            ref.flash_attention(q, k, v, causal=True), torch.bfloat16)
+        row = {
+            "tc_ms": _ms(lambda: flash_attention(q, k, v, causal=True)),
+            "cuda_core_bf16_ms": _ms(lambda: _launch(
+                "flash_attention", q, k, v, causal=True)),
+            "cuda_core_f32_ms": _ms(lambda: flash_attention(*f32,
+                                                            causal=True)),
+            "sdpa_ms": _ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+            "bound_ms": _bound(_nbytes(q, k, v, q),
+                               4.0 * dh * _attention_pairs(plen, plen)
+                               * b * hq, PEAK_BF16_FLOPS)[0]}
+        timings[plen] = row
+        print(f"flash_attention timings at {b}x{plen} (bf16 unless noted): "
+              + ", ".join(f"{key} {val:.3f}" for key, val in row.items()))
+        del q, k, v, f32
+
     q, k, v = qkv(s, s, torch.bfloat16)
     out = flash_attention(q, k, v, causal=True)
     plain = ref.flash_attention(q, k, v, causal=True)
@@ -387,21 +499,35 @@ def attention_kernel_phase(dev, results: dict) -> None:
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                    enable_gqa=True),
             _nbytes(q, k, v, out), 4.0 * dh * pairs * b * hq,
-            peak_flops=PEAK_BF16_FLOPS,
+            peak_flops=PEAK_BF16_FLOPS, source="flash_attention_tc",
+            launch_counter="flash_attention_tc",
             shape={"b": b, "hq": hq, "hkv": hkv, "sq": s, "skv": s, "dh": dh,
                    "dtype": "bfloat16", "causal": True},
             bound_peak="989 TFLOP/s dense bf16 tensor cores, 3.35 TB/s",
-            f32_ms=f32_ms, f32_max_abs_err=errs[(torch.float32, s)],
-            cross_shape={"sq": s // 4, "skv": s},
-            cross_max_abs_err_bf16=errs[(torch.bfloat16, s // 4)],
-            cross_max_abs_err_f32=errs[(torch.float32, s // 4)],
+            timings_by_prompt=timings,
+            cuda_core_route={
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "launch_counter": "flash_attention",
+                "f32_max_abs_err": errs[(torch.float32, s, s)],
+                "f32_cross_max_abs_err": errs[(torch.float32, s // 4, s)],
+                "f32_rel_err": rels[(torch.float32, s, s)],
+                "f32_cross_rel_err": rels[(torch.float32, s // 4, s)],
+                "bf16_errs_by_prompt": {
+                    plen: {"max_abs_err": e, "rel_err": r}
+                    for plen, (e, r) in cuda_core_bf16.items()}},
+            rel_err=rels[(torch.bfloat16, s, s)],
+            max_abs_err_by_shape={f"{sq}x{skv}": e for (dt, sq, skv), e
+                                  in errs.items() if dt == torch.bfloat16},
+            rel_err_by_shape={f"{sq}x{skv}": e for (dt, sq, skv), e
+                              in rels.items() if dt == torch.bfloat16},
+            rel_tol=ATTN_REL[torch.bfloat16],
             library_max_abs_err=(library.float() - plain.float())
             .abs().max().item())
 
 
 def lm_serve_phase(card: str) -> int:
     """Serve qwen3-8b at full width through the Server; return the
-    flash_attention launches of that run."""
+    tensor-core flash_attention launches of that run."""
     from repro_torch.kernels import _lib
     from repro_torch.launch.serve import (build_lm_engine, drive_lm,
                                           latency_percentiles, lm_report,
@@ -460,15 +586,17 @@ def lm_serve_phase(card: str) -> int:
           f"ms, p99 {p99:.3f} ms | peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"lm serve: kernel launches {launches}")
-    if batches != len(LM_PROMPTS) or launches["flash_attention"] != expect:
+    if batches != len(LM_PROMPTS) or launches["flash_attention_tc"] \
+            != expect or launches["flash_attention"]:
         raise AssertionError(
-            f"flash_attention launched {launches['flash_attention']} times "
+            f"flash_attention_tc launched {launches['flash_attention_tc']} "
+            f"times (the CUDA-core kernel {launches['flash_attention']}) "
             f"over {batches} prefill batches; expected {cfg.n_layers} per "
-            f"batch over {len(LM_PROMPTS)} batches")
+            f"batch over {len(LM_PROMPTS)} batches, all on the tensor cores")
 
     lm_prefill_parity(engine, requests, done, card)
     lm_profile(engine, requests[-LM_REQUESTS_PER_PROMPT:], card)
-    return launches["flash_attention"]
+    return launches["flash_attention_tc"]
 
 
 def lm_prefill_parity(engine, requests, served, card: str) -> None:

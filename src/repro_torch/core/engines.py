@@ -12,12 +12,14 @@ ASIC's feature memory.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal
 
 import torch
 
 from repro_torch.core.sharding import ShardedGraph
 from repro_torch.kernels.registry import KernelBackend, resolve
+from repro_torch.kernels.seg_gather import GatherIndex, gather_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +43,13 @@ class GraphTensors:
         return cls(blocks=put(sg.blocks), edge_src=put(sg.edge_src),
                    edge_dst=put(sg.edge_dst), edge_valid=put(sg.edge_valid),
                    num_nodes=sg.num_nodes, n=sg.n, S=sg.S)
+
+    @functools.cached_property
+    def gather_index(self) -> GatherIndex:
+        """The edges sorted by destination (CSR), built at the first
+        gather and kept: models that never gather never build it."""
+        return gather_index(self.edge_src, self.edge_dst, self.edge_valid,
+                            self.n)
 
     @property
     def device(self) -> torch.device:
@@ -86,7 +95,8 @@ class GraphEngine:
         if op == "linear":
             return self.spmm(gt.blocks, h)
         return resolve(self.backend).gather_aggregate(
-            gt.edge_src, gt.edge_dst, gt.edge_valid, h, op=op)
+            gt.edge_src, gt.edge_dst, gt.edge_valid, h, op=op,
+            index=gt.gather_index)
 
     def spmm(self, blocks: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """Shard-grid SpMM on explicit (S, S, n, n) blocks."""

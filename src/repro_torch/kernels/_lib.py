@@ -28,7 +28,8 @@ import torch
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).with_name("_build")
 SOURCES = ("shard_spmm.cu", "fused_gnn.cu", "dense_engine.cu",
-           "seg_gather.cu", "flash_attention.cu", "errors.cu")
+           "seg_gather.cu", "flash_attention.cu", "flash_attention_tc.cu",
+           "errors.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,8 +39,9 @@ KERNELS = {
     "shard_spmm": "pppiiii",
     "fused_gnn": "ppppiiiii",
     "dense_engine": "ppppiiii",
-    "seg_gather": "pppppiiiiii",
+    "seg_gather": "ppppiiiii",
     "flash_attention": "ppppiiiiiifiii",
+    "flash_attention_tc": "ppppiiiiiifii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -2,7 +2,9 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas kernel with a (bq x bk) logit tile and a (bq x dh) f32 VMEM
-// accumulator, walking Skv blockwise with a running max and denominator).
+// accumulator, walking Skv blockwise with a running max and denominator),
+// for float32 and for head dims other than 64 and 128; bfloat16 at dh 64
+// or 128 goes to flash_attention_tc.cu (flash_attention.py::_route).
 //
 // Semantics, as the TPU kernel: q (B, Hq, Sq, dh), k and v (B, Hkv, Skv,
 // dh), Hq % Hkv == 0 and query head h reads kv head h / (Hq / Hkv) (GQA).
@@ -16,8 +18,7 @@
 // dh 128, causal) the work is 4 * dh FLOP per kept (q, k) pair, 1.4e11
 // FLOP against 84 MB of q, k, v and out, so operations bound it. This
 // kernel does them in float32 FMA on the CUDA cores, not on the tensor
-// cores (wgmma and TMA are later work), so it sits far above the bf16
-// tensor-core bound.
+// cores, so it sits far above the bf16 tensor-core bound.
 //
 // Design: one 256-thread block owns one (batch * head, 64-row q tile); the
 // grid is (ceil(Sq / 64), B * Hq). The q tile stays in shared memory; the

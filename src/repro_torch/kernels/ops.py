@@ -30,10 +30,11 @@ def fused_aggregate_extract(blocks, h, w, *, activation: str = "none",
 
 
 def gather_aggregate(edge_src, edge_dst, edge_valid, h, *, op: str = "max",
-                     backend=None):
-    """Edge-list (gather/scatter) aggregation; max or sum."""
+                     index=None, backend=None):
+    """Edge-list (gather/scatter) aggregation; max or sum. ``index``: the
+    edges' ``seg_gather.gather_index``, if the caller keeps one."""
     return registry.resolve(backend).gather_aggregate(
-        edge_src, edge_dst, edge_valid, h, op=op)
+        edge_src, edge_dst, edge_valid, h, op=op, index=index)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,

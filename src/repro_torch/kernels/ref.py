@@ -85,6 +85,31 @@ def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     return out.reshape(s_dst, n, d).to(h.dtype)
 
 
+def seg_gather_indexed(index, h: torch.Tensor, *,
+                       op: str = "max") -> torch.Tensor:
+    """``seg_gather`` over a destination-sorted index
+    (``seg_gather.gather_index``: ``row_ptr``, ``src`` of global rows),
+    walked as the kernel walks it. h (S_src, n, D) -> (S_dst, n, D) with
+    S_dst·n = len(row_ptr) - 1; a row with no edge gets 0."""
+    if op not in ("max", "sum"):
+        raise ValueError(f"unknown op {op}")
+    _, n, d = h.shape
+    rows = index.row_ptr.numel() - 1
+    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
+    dst = torch.repeat_interleave(
+        torch.arange(rows, device=h.device), counts)
+    vals = h.reshape(-1, d).float()[index.src.long()]
+    if op == "max":
+        out = torch.full((rows, d), float("-inf"), device=h.device)
+        out.scatter_reduce_(0, dst[:, None].expand(-1, d), vals,
+                            reduce="amax", include_self=True)
+        out = torch.where(torch.isfinite(out), out, 0.0)
+    else:
+        out = torch.zeros((rows, d), device=h.device)
+        out.index_add_(0, dst, vals)
+    return out.reshape(rows // n, n, d).to(h.dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     window: int | None = None) -> torch.Tensor:

@@ -45,8 +45,9 @@ class KernelBackend(Protocol):
         ...
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
-                         op: str = "max"):
-        """Edge-list (gather/scatter) aggregation; max or sum."""
+                         op: str = "max", index=None):
+        """Edge-list (gather/scatter) aggregation; max or sum. ``index``:
+        the edges' ``seg_gather.gather_index`` if the caller keeps one."""
         ...
 
     def attention(self, q, k, v, *, causal: bool = True,
@@ -70,8 +71,9 @@ class CudaBackend:
         return fused_gnn_layer(blocks, h, w, activation=activation)
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
-                         op="max"):
-        return seg_gather_aggregate(edge_src, edge_dst, edge_valid, h, op=op)
+                         op="max", index=None):
+        return seg_gather_aggregate(edge_src, edge_dst, edge_valid, h, op=op,
+                                    index=index)
 
     def attention(self, q, k, v, *, causal=True, window=None, scale=None):
         return flash_attention(q, k, v, causal=causal, window=window,
@@ -93,7 +95,8 @@ class ReferenceBackend:
         return ref.fused_gnn(blocks, h, w, activation=activation)
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
-                         op="max"):
+                         op="max", index=None):
+        # the plain version of the whole function: the index is not used
         return ref.seg_gather(edge_src, edge_dst, edge_valid, h, op=op)
 
     def attention(self, q, k, v, *, causal=True, window=None, scale=None):

@@ -1,29 +1,69 @@
-"""Graph Engine gather/scatter aggregation (max or sum) over edge lists.
+"""Graph Engine gather aggregation (max or sum) over edge lists.
 
-The port of ``repro.kernels.seg_gather.seg_gather_aggregate``; the CUDA
-kernel is ``csrc/seg_gather.cu``: one warp per (destination shard,
-32 feature columns), walking the edge slots in order without atomics, so
-its result is deterministic. CPU tensors take the plain version in
-``ref.py``; CUDA tensors launch the kernel or raise.
+The port of ``repro.kernels.seg_gather.seg_gather_aggregate``. The padded
+per-shard-pair edge lists are first turned into a destination-sorted
+index (:func:`gather_index`, plain torch on the tensors' device, built
+once per graph by ``core.engines.GraphTensors``); the CUDA kernel
+``csrc/seg_gather.cu`` then gives each destination row one warp that
+gathers its source rows in the order the TPU kernel applies them,
+without atomics, so its result is deterministic. CPU tensors take the
+plain versions in ``ref.py``; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _lib, ref
 
-_COLS = 32                     # feature columns per block (csrc GD)
-_MAX_SMEM = 232_448            # bytes of shared memory a block may use
+
+@dataclasses.dataclass(frozen=True)
+class GatherIndex:
+    """Destination-sorted edges (CSR). Global destination row r = i·n + v
+    takes the global source rows ``src[row_ptr[r]:row_ptr[r + 1]]``
+    (j·n + u), in (j, e) order."""
+
+    row_ptr: torch.Tensor   # (S_dst·n + 1,) int32
+    src: torch.Tensor       # (nnz,) int32
+
+
+def gather_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                 edge_valid: torch.Tensor, n: int) -> GatherIndex:
+    """The :class:`GatherIndex` of (S_dst, S_src, E) padded edge lists
+    with local ids in shards of ``n`` rows. Valid slots are taken in
+    (i, j, e) order, ids outside [0, n) are dropped, and a stable sort by
+    global destination keeps each row's edges in (j, e) order."""
+    s_dst = edge_src.shape[0]
+    ii, jj, ee = edge_valid.nonzero(as_tuple=True)
+    u = edge_src[ii, jj, ee].long()
+    v = edge_dst[ii, jj, ee].long()
+    keep = (u >= 0) & (u < n) & (v >= 0) & (v < n)
+    src = (jj * n + u)[keep]
+    dst = (ii * n + v)[keep]
+    dst, order = torch.sort(dst, stable=True)
+    counts = torch.bincount(dst, minlength=s_dst * n)
+    row_ptr = torch.zeros(s_dst * n + 1, dtype=torch.int32,
+                          device=edge_src.device)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    return GatherIndex(row_ptr=row_ptr, src=src[order].to(torch.int32))
 
 
 def seg_gather_aggregate(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                          edge_valid: torch.Tensor, h: torch.Tensor, *,
-                         op: str = "max") -> torch.Tensor:
+                         op: str = "max",
+                         index: GatherIndex | None = None) -> torch.Tensor:
     """edge_src/edge_dst (S_dst, S_src, E) int32 local ids, edge_valid
-    (S_dst, S_src, E) bool, h (S_src, n, D) float32 -> (S_dst, n, D)."""
+    (S_dst, S_src, E) bool, h (S_src, n, D) float32 -> (S_dst, n, D).
+
+    ``index``: the edges' :func:`gather_index`, if the caller keeps one;
+    without it the index is built here. The result is the same."""
     if op not in ("max", "sum"):
         raise ValueError(f"unknown op {op}")
-    if _lib.on_cpu(edge_src, edge_dst, edge_valid, h):
+    extra = () if index is None else (index.row_ptr, index.src)
+    if _lib.on_cpu(edge_src, edge_dst, edge_valid, h, *extra):
+        if index is not None:
+            return ref.seg_gather_indexed(index, h, op=op)
         return ref.seg_gather(edge_src, edge_dst, edge_valid, h, op=op)
     _lib.check("seg_gather", "edge_src", edge_src, torch.int32, 3)
     _lib.check("seg_gather", "edge_dst", edge_dst, torch.int32, 3)
@@ -35,12 +75,18 @@ def seg_gather_aggregate(edge_src: torch.Tensor, edge_dst: torch.Tensor,
             or s_src != s3:
         raise ValueError(f"seg_gather: edges {tuple(edge_src.shape)} do not "
                          f"match h {tuple(h.shape)}")
-    if n * _COLS * 4 > _MAX_SMEM:
-        raise ValueError(f"seg_gather: n={n} needs {n * _COLS * 4} bytes of "
-                         f"shared memory, above {_MAX_SMEM}")
+    if index is None:
+        index = gather_index(edge_src, edge_dst, edge_valid, n)
+    _lib.check("seg_gather", "index.row_ptr", index.row_ptr, torch.int32, 1)
+    _lib.check("seg_gather", "index.src", index.src, torch.int32, 1)
+    if index.row_ptr.numel() != s_dst * n + 1:
+        raise ValueError(f"seg_gather: index has {index.row_ptr.numel() - 1} "
+                         f"rows, the edges {s_dst * n}")
+    if (d + 511) // 512 > 65535:
+        raise ValueError(f"seg_gather: D = {d} exceeds the grid limit")
     out = torch.empty((s_dst, n, d), dtype=torch.float32, device=h.device)
     if out.numel():
-        _lib.launch("seg_gather", edge_src, edge_dst, edge_valid, h, out,
-                    s_dst, s_src, n, e, d, int(op == "max"),
-                    device=h.device)
+        _lib.launch("seg_gather", index.row_ptr, index.src, h, out,
+                    s_dst * n, d, int(op == "max"), index.src.numel(),
+                    s_src * n, device=h.device)
     return out

@@ -28,6 +28,18 @@ TOL = dict(atol=1e-4, rtol=1e-4)   # float32 products, as tests/test_kernels.py
 # inputs 2e-4; bfloat16 inputs 8e-2 (one bf16 rounding of outputs of
 # magnitude up to ~4 is 1.6e-2 apart, plus the inputs' own rounding)
 ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
+# and on the card, relative norm ||out - plain|| / ||plain|| (as
+# chip_smoke.py): it weighs the small late causal rows that the max-abs
+# limit, set by the first rows, cannot see
+ATTN_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def _assert_attention_close(out, plain, dtype):
+    got, exp = out.float(), plain.float()
+    torch.testing.assert_close(got, exp, atol=ATTN_TOL[dtype],
+                               rtol=ATTN_TOL[dtype])
+    rel = ((got - exp).norm() / exp.norm().clamp_min(1e-30)).item()
+    assert rel <= ATTN_REL[dtype], f"relative norm error {rel:.3e}"
 
 
 @pytest.fixture
@@ -242,6 +254,24 @@ def test_attention_op_dispatches_to_both_backends(backend):
         out, ref.flash_attention(q, k, v, window=5), atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,dh,kernel", [
+    (torch.bfloat16, 64, "flash_attention_tc"),
+    (torch.bfloat16, 128, "flash_attention_tc"),
+    (torch.bfloat16, 32, "flash_attention"),
+    (torch.bfloat16, 80, "flash_attention"),
+    (torch.bfloat16, 16, "flash_attention"),
+    (torch.float32, 64, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),
+    (torch.float16, 128, "flash_attention"),   # refused there, by dtype
+])
+def test_flash_attention_route_is_static_by_dtype_and_head_dim(dtype, dh,
+                                                               kernel):
+    """bfloat16 at dh 64 or 128 takes the tensor-core kernel, everything
+    else the CUDA-core kernel; both are launch counters of their own."""
+    assert t_flash._route(dtype, dh) == kernel
+    assert kernel in _lib.KERNELS
+
+
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
     """Only CPU tensors take the plain version; a tensor elsewhere (here a
     meta tensor) raises rather than quietly running some other path."""
@@ -365,6 +395,65 @@ def test_cuda_seg_gather_matches_plain(cuda, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("op", ["max", "sum"])
+@pytest.mark.parametrize("d", [16, 45, 500, 600])
+def test_cuda_seg_gather_hub_and_empty_rows_match_plain(cuda, op, d):
+    """One hub destination with more than 100 in-edges (several 32-id
+    batches), empty destinations, and D below one warp's 512 columns,
+    ragged (45: the scalar path), at Pubmed's 500 and above 512 (two
+    column blocks). With the graph's index and without, the same result."""
+    r = _rng(27 + d)
+    s, n, e = 3, 64, 120
+    es, ed, ev = _edges(r, s, s, n, e)
+    ed = np.where(ed % 5 == 0, 1, ed)     # destination 1: the hub
+    ed = np.maximum(ed, 1)                # destination 0: no in-edge
+    ed[:, :, :40] = 1
+    ev[:, :, :40] = True
+    es, ed, ev = (_t(x).to(cuda) for x in (es, ed, ev))
+    h = _t(r.standard_normal((s, n, d), np.float32)).to(cuda)
+    index = t_gather.gather_index(es, ed, ev, n)
+    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).cpu()
+    assert counts.max() > 100 and (counts == 0).any()
+    # the plain versions on the CPU add in slot order, as the kernel does;
+    # on the card their index_add_ adds in any order
+    cpu = [x.cpu() for x in (es, ed, ev, h)]
+    plain = ref.seg_gather(*cpu, op=op)
+    cpu_index = t_gather.GatherIndex(row_ptr=index.row_ptr.cpu(),
+                                     src=index.src.cpu())
+    torch.testing.assert_close(
+        ref.seg_gather_indexed(cpu_index, cpu[3], op=op), plain, atol=1e-5,
+        rtol=1e-5)
+    for idx in (index, None):
+        out = _counted("seg_gather", lambda: t_gather.seg_gather_aggregate(
+            es, ed, ev, h, op=op, index=idx)).cpu()
+        assert (out[:, 0] == 0).all()
+        if op == "max":
+            assert torch.equal(out, plain)
+        else:
+            torch.testing.assert_close(out, plain, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_seg_gather_reads_nothing_outside_a_bad_index(cuda):
+    """An index not made by gather_index: a source id past h and a last
+    row pointer past the edge list. The kernel skips the id and stops at
+    the list's end instead of reading out of range."""
+    r = _rng(29)
+    h = _t(r.standard_normal((2, 4, 8), np.float32)).to(cuda)
+    es = torch.zeros((2, 2, 1), dtype=torch.int32, device=cuda)
+    ev = torch.zeros((2, 2, 1), dtype=torch.bool, device=cuda)
+    bad = t_gather.GatherIndex(
+        row_ptr=torch.tensor([0, 2, 2, 2, 2, 2, 2, 2, 9], dtype=torch.int32,
+                             device=cuda),
+        src=torch.tensor([3, 1000], dtype=torch.int32, device=cuda))
+    out = _counted("seg_gather", lambda: t_gather.seg_gather_aggregate(
+        es, es, ev, h, op="sum", index=bad))
+    expect = torch.zeros_like(out)
+    expect[0, 0] = h.reshape(-1, 8)[3]
+    torch.testing.assert_close(out, expect, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window", [
     (2, 4, 2, 70, 70, 16, True, None),     # ragged, GQA, dh 16
@@ -373,22 +462,42 @@ def test_cuda_seg_gather_matches_plain(cuda, op):
     (2, 4, 4, 150, 150, 128, True, 33),    # window, dh 128
     (1, 4, 2, 70, 90, 80, False, None),    # not causal, dh no power of two
     (1, 2, 2, 64, 64, 32, True, 0),        # window 0: every key masked
+    (2, 8, 2, 1000, 1000, 128, True, None),  # GQA 4:1, S 1000, dh 128
+    (2, 8, 2, 1000, 1000, 64, True, None),   # GQA 4:1, S 1000, dh 64
+    (1, 4, 2, 70, 300, 128, False, None),  # not causal, ragged, dh 128
+    (1, 2, 2, 64, 64, 64, True, 0),        # window 0, dh 64
+    (1, 2, 1, 300, 2000, 128, True, 100),  # window, ragged Skv, Sq < Skv
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, sq, skv,
                                             dh, causal, window):
     r = _rng(26)
     q, k, v = (_t(a).to(cuda, dtype)
                for a in _qkv(r, b, hq, hkv, sq, skv, dh))
-    out = _counted("flash_attention", lambda: t_flash.flash_attention(
+    # bfloat16 at dh 64 and 128 runs on the tensor-core kernel
+    out = _counted(t_flash._route(dtype, dh), lambda: t_flash.flash_attention(
         q, k, v, causal=causal, window=window))
     plain = ref.flash_attention(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype
-    tol = ATTN_TOL[dtype]
-    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    _assert_attention_close(out, plain, dtype)
     if causal and sq > skv:
         assert (out[:, :, :sq - skv] == 0).all()
     if window == 0:
         assert (out == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_cuda_flash_attention_both_kernels_take_bf16(cuda, dh):
+    """The CUDA-core kernel still takes bfloat16 at the tensor-core head
+    dims (chip_smoke.py times the two side by side); both agree with the
+    plain version."""
+    r = _rng(28)
+    q, k, v = (_t(a).to(cuda, torch.bfloat16)
+               for a in _qkv(r, 2, 8, 2, 300, 300, dh))
+    plain = ref.flash_attention(q, k, v)
+    for kernel in ("flash_attention", "flash_attention_tc"):
+        out = _counted(kernel, lambda: t_flash._launch(kernel, q, k, v))
+        _assert_attention_close(out, plain, torch.bfloat16)
 
 
 @pytest.mark.cuda
