@@ -16,13 +16,17 @@ scratch. In order:
    the card at the GNN path's full-scale Pubmed shapes (atol = rtol = 1e-4
    for the float32 products, exact for max, 1e-5 for sum), timed with
    CUDA events beside the plain version, one PyTorch library call and the
-   card's bound; seg_gather is timed as the serve path calls it (with the
-   graph's gather index) and standalone (index built in the call), the
-   index build alone, and the library path also with its index kept;
+   card's bound; fused_gnn (both layers' shapes) and seg_gather are timed
+   as the serve path calls them (with the graph's kept index) and
+   standalone (index built in the call), each index build alone, and the
+   library path with its index kept; dense_engine (3xTF32) is also held
+   to the float64 product (relative norm ``DENSE_REL``) at both Pubmed
+   shapes;
 4. GNN serve phase: GNNServeEngine + Server over full-scale Pubmed with
-   gcn, sage_mean and sage_max (hidden 16, 2 layers); every GNN kernel's
-   launch count must rise; each model's full-graph logits must match the
-   same model on the ``reference`` backend within 1e-4;
+   gcn, sage_mean and sage_max (hidden 16, 2 layers); each GNN kernel
+   must launch as often as ``GNN_LAUNCHES`` says; each model's full-graph
+   logits must match the same model on the ``reference`` backend within
+   1e-4;
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -61,9 +65,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores,
-# dense bf16 on the tensor cores, and HBM3. A card capped below 700 W runs
+# dense TF32 and bf16 on the tensor cores, and HBM3. A card capped below 700 W runs
 # slower than these.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -100,6 +105,15 @@ LM_LOGIT_REL = 5e-2
 # sits ~2x above the one and ~80x below the other. float32: 1.1e-6 read.
 ATTN_ATOL = {torch.bfloat16: 8e-2, torch.float32: 2e-4}
 ATTN_REL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+# dense_engine (3xTF32 on the tensor cores) against the float64 product,
+# relative norm: float32 accumulation reads ~1e-7 at K = 500-1000, one
+# TF32 pass ~3e-4 (PERF.md)
+DENSE_REL = 1e-5
+# kernel launches of the GNN serve run: one cold forward per model (gcn
+# 2 fused layers; sage_mean 2 shard_spmm + 2 dense; sage_max 4 dense + 2
+# gathers), later requests read the cached logits
+GNN_LAUNCHES = {"shard_spmm": 2, "fused_gnn": 2, "dense_engine": 6,
+                "seg_gather": 2}
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -200,6 +214,7 @@ def build(lib) -> None:
 
 def kernel_phase(engine, ds) -> dict:
     """Each kernel against its plain version at the Pubmed shapes."""
+    from repro_torch.kernels import csr as csr_index
     from repro_torch.kernels import dense_engine, fused_gnn, ref, seg_gather
     from repro_torch.kernels import shard_spmm
 
@@ -232,24 +247,85 @@ def kernel_phase(engine, ds) -> dict:
            _nbytes(blocks, h, out), 2.0 * nnz * d,
            nnz=nnz, dense_ops_bound_ms=dense_flops / PEAK_F32_FLOPS * 1e3)
 
-    # fused_gnn: gcn's normalized blocks, w (500, 16), relu
-    gblocks = gts["gcn"].blocks
-    gnnz = int((gblocks != 0).sum().item())
+    # fused_gnn: gcn's normalized blocks over the graph's kept linear
+    # index, as the serve path calls it, and standalone (index built in
+    # the call); layer 0 (D 500 -> F 16, relu) and layer 1 (D 16 -> F 3)
+    gt = gts["gcn"]
+    gblocks, lindex = gt.blocks, gt.linear_index
+    gnnz = lindex.col.numel()
+    if gnnz != int((gblocks != 0).sum().item()):
+        raise AssertionError(f"linear index holds {gnnz} entries, the "
+                             f"blocks {(gblocks != 0).sum().item()}")
     w = randn(d, 16, scale=(2.0 / (d + 16)) ** 0.5)
-    out = fused_gnn.fused_gnn_layer(gblocks, h, w, activation="relu")
-    plain = ref.fused_gnn(gblocks, h, w, activation="relu")
-    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
-    record("fused_gnn", out, plain,
-           lambda: fused_gnn.fused_gnn_layer(gblocks, h, w, activation="relu"),
-           lambda: ref.fused_gnn(gblocks, h, w, activation="relu"),
-           lambda: torch.relu(torch.einsum(
-               "ivd,df->ivf", torch.einsum("ijvu,jud->ivd", gblocks, h), w)),
-           _nbytes(gblocks, h, w, out), 2.0 * gnnz * d + 2.0 * rows * d * 16,
-           nnz=gnnz,
-           dense_ops_bound_ms=(2.0 * s * s * n * n * d + 2.0 * rows * d * 16)
-           / PEAK_F32_FLOPS * 1e3)
+    h1 = randn(s, n, 16)
+    w1 = randn(16, 3, scale=(2.0 / 19) ** 0.5)
+    layers = {0: (h, w, "relu"), 1: (h1, w1, "none")}
+    outs, plains, errs = {}, {}, {}
+    for layer, (hh, ww, act) in layers.items():
+        plains[layer] = ref.fused_gnn(gblocks, hh, ww, activation=act)
+        for idx in (lindex, None):
+            outs[layer] = fused_gnn.fused_gnn_layer(gblocks, hh, ww,
+                                                    activation=act, index=idx)
+            torch.testing.assert_close(outs[layer], plains[layer], atol=1e-4,
+                                       rtol=1e-4)
+        errs[layer] = (outs[layer] - plains[layer]).abs().max().item()
+    csr = torch.sparse_csr_tensor(lindex.row_ptr, lindex.col, lindex.val,
+                                  size=(rows, rows))
 
-    # dense_engine: sage_max's pool transform (relu) and its concat product
+    def library_kept(layer):
+        # the same function over the same kept index: a cuSPARSE CSR
+        # product, then the dense product, then the activation
+        hh, ww, act = layers[layer]
+        y = (csr @ hh.reshape(rows, -1)) @ ww
+        return (torch.relu(y) if act == "relu" else y).reshape(s, n, -1)
+
+    for layer in layers:
+        torch.testing.assert_close(library_kept(layer), plains[layer],
+                                   atol=1e-4, rtol=1e-4)
+    index_runs, standalone_runs = [], []
+    for _ in range(5):
+        index_runs.append(_ms(lambda: csr_index.linear_index(gblocks)))
+        standalone_runs.append(_ms(lambda: fused_gnn.fused_gnn_layer(
+            gblocks, h, w, activation="relu")))
+    index_ms = float(np.median(index_runs))
+    standalone_ms = float(np.median(standalone_runs))
+    print(f"fused_gnn: linear index build {index_ms:.3f} ms ({gnnz} "
+          f"nonzeros, {rows} rows; rounds "
+          f"{', '.join(f'{t:.3f}' for t in index_runs)}); standalone call "
+          f"(index built in the call) {standalone_ms:.3f} ms (rounds "
+          f"{', '.join(f'{t:.3f}' for t in standalone_runs)})")
+    index_bytes = _nbytes(lindex.row_ptr, lindex.col, lindex.val)
+    l1_bound, l1_by = _bound(index_bytes + _nbytes(h1, w1, outs[1]),
+                             2.0 * gnnz * 16 + 2.0 * rows * 16 * 3)
+    layer1 = {"shape": {"d": 16, "f": 3, "activation": "none"},
+              "ms": _ms(lambda: fused_gnn.fused_gnn_layer(
+                  gblocks, h1, w1, index=lindex)),
+              "plain_ms": _ms(lambda: ref.fused_gnn(gblocks, h1, w1)),
+              "library_ms": _ms(lambda: library_kept(1)),
+              "bound_ms": l1_bound, "bound_by": l1_by,
+              "max_abs_err": errs[1]}
+    print(f"fused_gnn layer 1 (D 16 -> F 3): {layer1}")
+    record("fused_gnn", outs[0], plains[0],
+           lambda: fused_gnn.fused_gnn_layer(gblocks, h, w, activation="relu",
+                                             index=lindex),
+           lambda: ref.fused_gnn(gblocks, h, w, activation="relu"),
+           lambda: library_kept(0),
+           index_bytes + _nbytes(h, w, outs[0]),
+           2.0 * gnnz * d + 2.0 * rows * d * 16,
+           bound_peak="3.35 TB/s; f32 67 TFLOP/s (CUDA cores)",
+           library="cuSPARSE CSR x h over the kept index, @ w, relu",
+           library_einsum_ms=_ms(lambda: torch.relu(torch.einsum(
+               "ivd,df->ivf", torch.einsum("ijvu,jud->ivd", gblocks, h), w))),
+           nnz=gnnz, index_bytes=index_bytes,
+           gathered_row_bytes=4.0 * gnnz * d,
+           standalone_ms=standalone_ms, index_build_ms=index_ms,
+           standalone_ms_rounds=standalone_runs,
+           index_build_ms_rounds=index_runs, layer1=layer1)
+    del csr
+
+    # dense_engine: sage_max's pool transform (relu) and sage_mean's
+    # concat product; 3xTF32 on the tensor cores, so also held to the
+    # float64 product in relative norm (DENSE_REL)
     x = h.reshape(rows, d)
     wp = randn(d, d, scale=(1.0 / d) ** 0.5)
     bp = randn(d, scale=0.1)
@@ -261,16 +337,40 @@ def kernel_phase(engine, ds) -> dict:
     out2 = dense_engine.dense_engine_matmul(x2, w2)
     plain2 = ref.dense_engine(x2, w2)
     torch.testing.assert_close(out2, plain2, atol=1e-4, rtol=1e-4)
-    second_ms = _ms(lambda: dense_engine.dense_engine_matmul(x2, w2))
-    second_bound, _ = _bound(_nbytes(x2, w2, out2), 2.0 * rows * 2 * d * 16)
+    rel64 = {}
+    for label, got, exact in (
+            ("pool", dense_engine.dense_engine_matmul(x, wp, bp),
+             torch.addmm(bp.double(), x.double(), wp.double())),
+            ("concat", out2, x2.double() @ w2.double())):
+        rel64[label] = ((got.double() - exact).norm() / exact.norm()).item()
+        print(f"dense_engine {label}: relative norm vs float64 "
+              f"{rel64[label]:.3e} (tol {DENSE_REL})")
+        if rel64[label] > DENSE_REL:
+            raise AssertionError(f"dense_engine {label}: relative norm "
+                                 f"{rel64[label]:.3e} vs float64 above "
+                                 f"{DENSE_REL}")
+    tf32_peak = "3 TF32 passes at 495 TFLOP/s dense tensor cores, 3.35 TB/s"
+    second_bound, second_by = _bound(_nbytes(x2, w2, out2),
+                                     3 * 2.0 * rows * 2 * d * 16,
+                                     PEAK_TF32_FLOPS)
     record("dense_engine", out, plain,
            lambda: dense_engine.dense_engine_matmul(x, wp, bp,
                                                     activation="relu"),
            lambda: ref.dense_engine(x, wp, bp, activation="relu"),
            lambda: torch.relu(torch.addmm(bp, x, wp)),
-           _nbytes(x, wp, bp, out), 2.0 * rows * d * d,
-           concat_product={"shape": [rows, 2 * d, 16], "ms": second_ms,
-                           "bound_ms": second_bound,
+           _nbytes(x, wp, bp, out), 3 * 2.0 * rows * d * d,
+           peak_flops=PEAK_TF32_FLOPS, bound_peak=tf32_peak,
+           f32_cuda_core_bound_ms=2.0 * rows * d * d / PEAK_F32_FLOPS * 1e3,
+           rel_err_f64=rel64["pool"], rel_tol=DENSE_REL,
+           concat_product={"shape": [rows, 2 * d, 16],
+                           "ms": _ms(lambda: dense_engine.dense_engine_matmul(
+                               x2, w2)),
+                           "plain_ms": _ms(lambda: ref.dense_engine(x2, w2)),
+                           "library_ms": _ms(lambda: torch.mm(x2, w2)),
+                           "library": "torch.mm (addmm without a bias)",
+                           "bound_ms": second_bound, "bound_by": second_by,
+                           "bound_peak": tf32_peak,
+                           "rel_err_f64": rel64["concat"],
                            "max_abs_err": (out2 - plain2).abs().max().item()})
 
     # seg_gather: sage_max's edge lists, as the serve path calls it (with
@@ -387,6 +487,11 @@ def serve_phase(engine, ds, args, kernels) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the GNN path: "
                              f"{missing}")
+    wrong = {k: launches[k] for k, c in GNN_LAUNCHES.items()
+             if launches[k] != c}
+    if wrong:
+        raise AssertionError(f"GNN path launches {wrong}, expected "
+                             f"{GNN_LAUNCHES}")
 
     for arch in ARCHS:
         exe = engine.executable(f"{arch}@pubmed", "pubmed")

@@ -18,8 +18,8 @@ from typing import Literal
 import torch
 
 from repro_torch.core.sharding import ShardedGraph
+from repro_torch.kernels import csr
 from repro_torch.kernels.registry import KernelBackend, resolve
-from repro_torch.kernels.seg_gather import GatherIndex, gather_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +45,18 @@ class GraphTensors:
                    num_nodes=sg.num_nodes, n=sg.n, S=sg.S)
 
     @functools.cached_property
-    def gather_index(self) -> GatherIndex:
+    def gather_index(self) -> csr.GatherIndex:
         """The edges sorted by destination (CSR), built at the first
         gather and kept: models that never gather never build it."""
-        return gather_index(self.edge_src, self.edge_dst, self.edge_valid,
-                            self.n)
+        return csr.gather_index(self.edge_src, self.edge_dst,
+                                self.edge_valid, self.n)
+
+    @functools.cached_property
+    def linear_index(self) -> csr.LinearIndex:
+        """The blocks' nonzeros sorted by destination (CSR), built at the
+        first fused layer and kept: models that never fuse never build
+        it."""
+        return csr.linear_index(self.blocks)
 
     @property
     def device(self) -> torch.device:
@@ -120,7 +127,8 @@ class GNNeratorController:
         """act((A · H) · W) — GCN-style layer body on grouped features."""
         if self.fuse and b is None:
             return resolve(self.graph.backend).fused_aggregate_extract(
-                gt.blocks, h, w, activation=activation)
+                gt.blocks, h, w, activation=activation,
+                index=gt.linear_index)
         agg = self.graph.aggregate(gt, h, op="linear")
         s, n, d = agg.shape
         out = self.dense(agg.reshape(s * n, d), w, b, activation=activation)

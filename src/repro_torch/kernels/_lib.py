@@ -37,8 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # "p" a pointer (tensor or None), "i" a C int, "f" a C float
 KERNELS = {
     "shard_spmm": "pppiiii",
-    "fused_gnn": "ppppiiiii",
-    "dense_engine": "ppppiiii",
+    "fused_gnn": "pppppppiiiiiii",
+    "dense_engine": "pppppiiii",
     "seg_gather": "ppppiiiii",
     "flash_attention": "ppppiiiiiifiii",
     "flash_attention_tc": "ppppiiiiiifii",

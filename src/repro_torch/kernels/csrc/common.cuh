@@ -1,4 +1,5 @@
-// Shared tile machinery for the GNNerator kernels (float32, sm_90a).
+// The activation every GNN kernel's epilogue applies, and shard_spmm's
+// CUDA-core tile machinery (float32, sm_90a).
 //
 // One 64x64 output tile per 256-thread block; each thread owns a 4x4
 // sub-tile at rows ty + 16*i and columns tx + 16*j, so shared-memory
@@ -94,14 +95,12 @@ __device__ __forceinline__ void slice_fma(
 // A is row-major with leading dimension lda and M valid rows; B is
 // row-major with leading dimension ldb and N valid columns. The next
 // slice of A is loaded into registers while the current one is used.
-// With kSkipZeroA (the aggregation kernels, where A is a densified
-// adjacency and almost all zero), a K slice whose A part is all zero is
-// skipped after one block-wide vote, before its B slice is read: this
-// equals the full product only for finite B, since a skipped 0 * Inf or
-// 0 * NaN term would have made the sum NaN. Without it every slice is
-// multiplied, as a plain SGEMM. Ends with a barrier, so the caller may
-// reuse shared memory right after.
-template <bool kSkipZeroA>
+// A is a densified adjacency (shard_spmm), almost all zero: a K slice
+// whose A part is all zero is skipped after one block-wide vote, before
+// its B slice is read. This equals the full product only for finite B,
+// since a skipped 0 * Inf or 0 * NaN term would have made the sum NaN.
+// Ends with a barrier, so the caller may reuse shared memory right
+// after.
 __device__ __forceinline__ void gemm_tile(
     const float* __restrict__ A, long long lda, int M,
     const float* __restrict__ B, long long ldb, int N, int K,
@@ -113,11 +112,7 @@ __device__ __forceinline__ void gemm_tile(
         a[0] != 0.f || a[1] != 0.f || a[2] != 0.f || a[3] != 0.f;
     store_a_slice(s, a);
     if (k0 + TK < K) load_a_slice(A, lda, M, K, m0, k0 + TK, a);
-    if (kSkipZeroA) {
-      if (!__syncthreads_or(nonzero)) continue;  // barrier + vote
-    } else {
-      __syncthreads();
-    }
+    if (!__syncthreads_or(nonzero)) continue;  // barrier + vote
     slice_fma(B, ldb, N, K, n0, k0, s, acc);
   }
 }

@@ -37,7 +37,7 @@ shard_spmm_kernel(const float* __restrict__ blocks,
   for (int j = 0; j < s_src; ++j) {
     const float* a = blocks + ((long long)i * s_src + j) * n * n;
     const float* hj = h + (long long)j * n * d;
-    gemm_tile<true>(a, n, n, hj, d, d, n, v0, d0, s, acc);
+    gemm_tile(a, n, n, hj, d, d, n, v0, d0, s, acc);
   }
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float* o = out + (long long)i * n * d;

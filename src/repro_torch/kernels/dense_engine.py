@@ -1,8 +1,9 @@
 """Dense Engine: ``act(x @ w + b)``.
 
 The port of ``repro.kernels.dense_engine.dense_engine_matmul``; the CUDA
-kernel is ``csrc/dense_engine.cu``, a tiled float32 GEMM with the bias
-and activation in its epilogue. CPU tensors take the plain version in
+kernel is ``csrc/dense_engine.cu``, a float32 GEMM on the tensor cores
+(three TF32 products per step, float32 accuracy) with the bias and
+activation in its epilogue. CPU tensors take the plain version in
 ``ref.py``; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
@@ -11,6 +12,8 @@ import torch
 
 from repro_torch.kernels import _lib, ref
 from repro_torch.kernels.fused_gnn import ACTIVATIONS
+
+_PLANES_FLOATS = 3 * 128 * 32  # csrc wide::B_BYTES / 4
 
 
 def dense_engine_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -36,6 +39,13 @@ def dense_engine_matmul(x: torch.Tensor, w: torch.Tensor,
                              f"match w {tuple(w.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel():
-        _lib.launch("dense_engine", x, w, b, out, m, n, k,
+        # N > 32: w's split planes, 48 KB per (128-column tile, 32-deep
+        # K slice), written by the kernel's first pass
+        scratch = None
+        if n > 32:
+            scratch = torch.empty(
+                -(-n // 128) * -(-k // 32) * _PLANES_FLOATS,
+                dtype=torch.float32, device=x.device)
+        _lib.launch("dense_engine", x, w, b, scratch, out, m, n, k,
                     ACTIVATIONS[activation], device=x.device)
     return out

@@ -1,32 +1,42 @@
 """Fused Graph Engine -> Dense Engine layer: ``act((A · H) · W)``.
 
-The port of ``repro.kernels.fused_gnn.fused_gnn_layer``; the CUDA kernel
-is ``csrc/fused_gnn.cu``, whose (n × 64) aggregate tiles live in shared
-memory and never reach device memory. CPU tensors take the plain version
-in ``ref.py``; CUDA tensors launch the kernel or raise.
+The port of ``repro.kernels.fused_gnn.fused_gnn_layer``. The blocks'
+nonzeros are first listed by destination row (``csr.linear_index``,
+plain torch on the tensors' device, built once per graph by
+``core.engines.GraphTensors``); the CUDA kernel ``csrc/fused_gnn.cu``
+then gathers each destination row's weighted source rows into
+registers, multiplies that aggregate by W from shared memory and writes
+the row once: the aggregate never reaches device memory. The index's hub
+rows get a block each. CPU tensors take the plain version in ``ref.py``;
+CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib, ref
+from repro_torch.kernels import _lib, csr, ref
+from repro_torch.kernels.csr import LinearIndex, linear_index
 
 ACTIVATIONS = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
-_MAX_SLICES = 32768            # csrc kMaxSlices: the kernel's slice bitmap
 
 
 def fused_gnn_layer(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
-                    *, activation: str = "none") -> torch.Tensor:
+                    *, activation: str = "none",
+                    index: LinearIndex | None = None) -> torch.Tensor:
     """blocks (S, S, n, n), h (S, n, D), w (D, F), all float32 ->
     (S, n, F).
 
-    The kernel skips (64 × 16) slices of the blocks that are all zero, so
-    it equals the full product only for finite ``h``: where ``h`` holds
-    Inf or NaN behind a zero slice, the plain version gives NaN and the
-    kernel does not."""
+    ``index``: the blocks' :func:`~repro_torch.kernels.csr.linear_index`,
+    if the caller keeps one; without it the index is built here (a sync
+    with the host). The result is the same. The kernel reads only the
+    blocks' nonzeros, so it equals the full product only for finite
+    ``h``: where ``h`` holds Inf or NaN behind a zero of the blocks, the
+    plain version gives NaN and the kernel does not."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation}")
-    if _lib.on_cpu(blocks, h, w):
+    extra = () if index is None else (index.row_ptr, index.col, index.val,
+                                      index.hubs)
+    if _lib.on_cpu(blocks, h, w, *extra):
         return ref.fused_gnn(blocks, h, w, activation=activation)
     _lib.check("fused_gnn", "blocks", blocks, torch.float32, 4)
     _lib.check("fused_gnn", "h", h, torch.float32, 3)
@@ -38,11 +48,22 @@ def fused_gnn_layer(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"fused_gnn: shapes do not match: blocks "
                          f"{tuple(blocks.shape)}, h {tuple(h.shape)}, "
                          f"w {tuple(w.shape)}")
-    if s * -(-n // 16) > _MAX_SLICES:
-        raise ValueError(f"fused_gnn: a {s}x{s} grid of {n}-node shards "
-                         f"has more than {_MAX_SLICES} slices per block row")
+    if index is None:
+        index = linear_index(blocks)
+    _lib.check("fused_gnn", "index.row_ptr", index.row_ptr, torch.int32, 1)
+    _lib.check("fused_gnn", "index.col", index.col, torch.int32, 1)
+    _lib.check("fused_gnn", "index.val", index.val, torch.float32, 1)
+    _lib.check("fused_gnn", "index.hubs", index.hubs, torch.int32, 1)
+    if index.row_ptr.numel() != s * n + 1 or \
+            index.col.numel() != index.val.numel():
+        raise ValueError(f"fused_gnn: index has {index.row_ptr.numel() - 1} "
+                         f"rows and {index.col.numel()} / "
+                         f"{index.val.numel()} entries; the blocks {s * n} "
+                         f"rows")
     out = torch.empty((s, n, f), dtype=torch.float32, device=h.device)
     if out.numel():
-        _lib.launch("fused_gnn", blocks, h, w, out, s, n, d, f,
-                    ACTIVATIONS[activation], device=h.device)
+        _lib.launch("fused_gnn", index.row_ptr, index.col, index.val,
+                    index.hubs, h, w, out, s * n, d, f,
+                    ACTIVATIONS[activation], index.col.numel(),
+                    index.hubs.numel(), csr.HUB_ENTRIES, device=h.device)
     return out

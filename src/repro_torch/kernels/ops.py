@@ -23,16 +23,17 @@ def graph_aggregate(blocks, h, *, backend=None):
 
 
 def fused_aggregate_extract(blocks, h, w, *, activation: str = "none",
-                            backend=None):
-    """act((A·H)·W) with the aggregate kept on chip."""
+                            index=None, backend=None):
+    """act((A·H)·W) with the aggregate kept on chip. ``index``: the
+    blocks' ``csr.linear_index``, if the caller keeps one."""
     return registry.resolve(backend).fused_aggregate_extract(
-        blocks, h, w, activation=activation)
+        blocks, h, w, activation=activation, index=index)
 
 
 def gather_aggregate(edge_src, edge_dst, edge_valid, h, *, op: str = "max",
                      index=None, backend=None):
     """Edge-list (gather/scatter) aggregation; max or sum. ``index``: the
-    edges' ``seg_gather.gather_index``, if the caller keeps one."""
+    edges' ``csr.gather_index``, if the caller keeps one."""
     return registry.resolve(backend).gather_aggregate(
         edge_src, edge_dst, edge_valid, h, op=op, index=index)
 

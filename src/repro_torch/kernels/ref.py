@@ -55,6 +55,23 @@ def fused_gnn(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor, *,
     return _activate(out, activation).to(h.dtype)
 
 
+def fused_gnn_indexed(index, h: torch.Tensor, w: torch.Tensor, *,
+                      activation: str = "none") -> torch.Tensor:
+    """``fused_gnn`` over the blocks' destination-sorted nonzeros
+    (``csr.linear_index``: ``row_ptr``, ``col``, ``val``), walked as the
+    kernel walks it: each row sums val · h[col], then meets W. h (S, n, D),
+    w (D, F) -> (S, n, F) with S·n = len(row_ptr) - 1. The tests' oracle
+    for the index; the wrappers run :func:`fused_gnn`."""
+    _, n, d = h.shape
+    rows = index.row_ptr.numel() - 1
+    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
+    dst = torch.repeat_interleave(torch.arange(rows, device=h.device), counts)
+    vals = h.reshape(-1, d).float()[index.col.long()] * index.val[:, None]
+    agg = torch.zeros((rows, d), device=h.device).index_add_(0, dst, vals)
+    out = _activate(agg @ w.float(), activation)
+    return out.reshape(rows // n, n, -1).to(h.dtype)
+
+
 def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                edge_valid: torch.Tensor, h: torch.Tensor, *,
                op: str = "max") -> torch.Tensor:
@@ -88,7 +105,7 @@ def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
 def seg_gather_indexed(index, h: torch.Tensor, *,
                        op: str = "max") -> torch.Tensor:
     """``seg_gather`` over a destination-sorted index
-    (``seg_gather.gather_index``: ``row_ptr``, ``src`` of global rows),
+    (``csr.gather_index``: ``row_ptr``, ``src`` of global rows),
     walked as the kernel walks it. h (S_src, n, D) -> (S_dst, n, D) with
     S_dst·n = len(row_ptr) - 1; a row with no edge gets 0."""
     if op not in ("max", "sum"):

@@ -40,14 +40,15 @@ class KernelBackend(Protocol):
         ...
 
     def fused_aggregate_extract(self, blocks, h, w, *,
-                                activation: str = "none"):
-        """act((A·H)·W) with the aggregate kept on chip."""
+                                activation: str = "none", index=None):
+        """act((A·H)·W) with the aggregate kept on chip. ``index``: the
+        blocks' ``csr.linear_index`` if the caller keeps one."""
         ...
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
                          op: str = "max", index=None):
         """Edge-list (gather/scatter) aggregation; max or sum. ``index``:
-        the edges' ``seg_gather.gather_index`` if the caller keeps one."""
+        the edges' ``csr.gather_index`` if the caller keeps one."""
         ...
 
     def attention(self, q, k, v, *, causal: bool = True,
@@ -67,8 +68,10 @@ class CudaBackend:
     def graph_aggregate(self, blocks, h):
         return shard_spmm(blocks, h)
 
-    def fused_aggregate_extract(self, blocks, h, w, *, activation="none"):
-        return fused_gnn_layer(blocks, h, w, activation=activation)
+    def fused_aggregate_extract(self, blocks, h, w, *, activation="none",
+                                index=None):
+        return fused_gnn_layer(blocks, h, w, activation=activation,
+                               index=index)
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
                          op="max", index=None):
@@ -91,7 +94,9 @@ class ReferenceBackend:
     def graph_aggregate(self, blocks, h):
         return ref.shard_spmm(blocks, h)
 
-    def fused_aggregate_extract(self, blocks, h, w, *, activation="none"):
+    def fused_aggregate_extract(self, blocks, h, w, *, activation="none",
+                                index=None):
+        # the plain version of the whole function: the index is not used
         return ref.fused_gnn(blocks, h, w, activation=activation)
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,

@@ -2,7 +2,7 @@
 
 The port of ``repro.kernels.seg_gather.seg_gather_aggregate``. The padded
 per-shard-pair edge lists are first turned into a destination-sorted
-index (:func:`gather_index`, plain torch on the tensors' device, built
+index (``csr.gather_index``, plain torch on the tensors' device, built
 once per graph by ``core.engines.GraphTensors``); the CUDA kernel
 ``csrc/seg_gather.cu`` then gives each destination row one warp that
 gathers its source rows in the order the TPU kernel applies them,
@@ -11,42 +11,12 @@ plain versions in ``ref.py``; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from repro_torch.kernels import _lib, ref
+from repro_torch.kernels.csr import GatherIndex, gather_index
 
-
-@dataclasses.dataclass(frozen=True)
-class GatherIndex:
-    """Destination-sorted edges (CSR). Global destination row r = i·n + v
-    takes the global source rows ``src[row_ptr[r]:row_ptr[r + 1]]``
-    (j·n + u), in (j, e) order."""
-
-    row_ptr: torch.Tensor   # (S_dst·n + 1,) int32
-    src: torch.Tensor       # (nnz,) int32
-
-
-def gather_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                 edge_valid: torch.Tensor, n: int) -> GatherIndex:
-    """The :class:`GatherIndex` of (S_dst, S_src, E) padded edge lists
-    with local ids in shards of ``n`` rows. Valid slots are taken in
-    (i, j, e) order, ids outside [0, n) are dropped, and a stable sort by
-    global destination keeps each row's edges in (j, e) order."""
-    s_dst = edge_src.shape[0]
-    ii, jj, ee = edge_valid.nonzero(as_tuple=True)
-    u = edge_src[ii, jj, ee].long()
-    v = edge_dst[ii, jj, ee].long()
-    keep = (u >= 0) & (u < n) & (v >= 0) & (v < n)
-    src = (jj * n + u)[keep]
-    dst = (ii * n + v)[keep]
-    dst, order = torch.sort(dst, stable=True)
-    counts = torch.bincount(dst, minlength=s_dst * n)
-    row_ptr = torch.zeros(s_dst * n + 1, dtype=torch.int32,
-                          device=edge_src.device)
-    row_ptr[1:] = torch.cumsum(counts, 0)
-    return GatherIndex(row_ptr=row_ptr, src=src[order].to(torch.int32))
+__all__ = ["GatherIndex", "gather_index", "seg_gather_aggregate"]
 
 
 def seg_gather_aggregate(edge_src: torch.Tensor, edge_dst: torch.Tensor,

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _lib, ops, ref
+from repro_torch.kernels import _lib, csr, ops, ref
 from repro_torch.kernels import dense_engine as t_dense
 from repro_torch.kernels import flash_attention as t_flash
 from repro_torch.kernels import fused_gnn as t_fused
@@ -342,6 +342,118 @@ def test_cuda_fused_gnn_matches_plain(cuda, density):
             a, h, w, activation="relu"))
         torch.testing.assert_close(
             out, ref.fused_gnn(a, h, w, activation="relu"), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.2, 0.003])
+@pytest.mark.parametrize("d", [16, 150, 500, 600])
+def test_cuda_fused_gnn_kept_index_and_hub_match_plain(cuda, density, d):
+    """With the blocks' kept index and standalone, at D 16 (several rows
+    a warp), 150 (ragged: the scalar path), 500 (Pubmed) and 600 (two D
+    chunks), F 3, 16 and 77 (several F chunks), with empty rows (shard 0)
+    and a hub row with nonzeros in every source shard."""
+    r = _rng(30 + d)
+    s, n = 3, 70
+    a = _blocks(r, (s, s, n, n), density)
+    a[1, :, 1, :40] = 0.25                 # the hub: row 1 of shard 1
+    a = _t(a).to(cuda)
+    h = _t(r.standard_normal((s, n, d), np.float32)).to(cuda)
+    index = t_fused.linear_index(a)
+    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).cpu()
+    assert (counts[:n] == 0).all() and counts.max() >= 3 * 40
+    # rows of more than HUB_ENTRIES entries get a block each: the hub,
+    # and at density 0.2 most rows of shards 1 and 2
+    assert index.hubs.tolist() == torch.nonzero(
+        counts > csr.HUB_ENTRIES).reshape(-1).tolist()
+    assert n + 1 in index.hubs.tolist()
+    for f in (3, 16, 77):
+        w = _t(r.standard_normal((d, f), np.float32)).to(cuda)
+        plain = ref.fused_gnn(a, h, w, activation="relu")
+        torch.testing.assert_close(
+            ref.fused_gnn_indexed(index, h, w, activation="relu"), plain,
+            **TOL)
+        for idx in (index, None):
+            out = _counted("fused_gnn", lambda: t_fused.fused_gnn_layer(
+                a, h, w, activation="relu", index=idx))
+            torch.testing.assert_close(out, plain, **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_gnn_reads_nothing_outside_a_bad_index(cuda):
+    """An index not made by linear_index: a column past h and a last row
+    pointer past the entry list. The kernel skips the column and stops at
+    the list's end instead of reading out of range."""
+    r = _rng(31)
+    h = _t(r.standard_normal((2, 4, 8), np.float32)).to(cuda)
+    w = torch.eye(8, device=cuda)
+    a = torch.zeros((2, 2, 4, 4), device=cuda)
+    bad = t_fused.LinearIndex(
+        row_ptr=torch.tensor([0, 2, 2, 2, 2, 2, 2, 2, 9], dtype=torch.int32,
+                             device=cuda),
+        col=torch.tensor([3, 1000], dtype=torch.int32, device=cuda),
+        val=torch.tensor([2.0, 1.0], device=cuda),
+        hubs=torch.zeros(0, dtype=torch.int32, device=cuda))
+    out = _counted("fused_gnn", lambda: t_fused.fused_gnn_layer(
+        a, h, w, index=bad))
+    expect = torch.zeros_like(out)
+    expect[0, 0] = 2.0 * h.reshape(-1, 8)[3]
+    torch.testing.assert_close(out, expect, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (131, 75, 3), (131, 75, 16), (131, 75, 67), (131, 75, 500),
+    (1000, 1003, 16), (1000, 500, 500), (19968, 500, 500),
+    (257, 29, 33), (64, 8, 32),
+])
+def test_cuda_dense_engine_shapes_match_plain(cuda, m, k, n):
+    """Both tile shapes (N <= 32 and above), K no multiple of 8 (nor of
+    4: the 4-byte copy path), ragged M, and Pubmed's pool product."""
+    r = _rng(m + k + n)
+    x = _t(r.standard_normal((m, k), np.float32)).to(cuda)
+    w = _t((r.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)).to(cuda)
+    b = _t(r.standard_normal((n,), np.float32)).to(cuda)
+    out = _counted("dense_engine", lambda: t_dense.dense_engine_matmul(
+        x, w, b, activation="relu"))
+    torch.testing.assert_close(
+        out, ref.dense_engine(x, w, b, activation="relu"), **TOL)
+
+
+# 3xTF32 against the float64 product, relative norm at K = 1000: float32
+# accumulation reads ~1e-7 there, one TF32 pass (10 mantissa bits) ~3e-4
+DENSE_REL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 500])
+def test_cuda_dense_engine_keeps_float32_precision(cuda, n):
+    """||kernel - float64 product|| / ||float64 product|| at K = 1000 for
+    both tile shapes: a single TF32 pass fails this."""
+    r = _rng(32 + n)
+    x = _t(r.standard_normal((2048, 1000), np.float32)).to(cuda)
+    w = _t(r.standard_normal((1000, n), np.float32)).to(cuda)
+    out = _counted("dense_engine", lambda: t_dense.dense_engine_matmul(x, w))
+    exact = x.double() @ w.double()
+    rel = ((out.double() - exact).norm() / exact.norm()).item()
+    assert rel <= DENSE_REL, f"relative norm error {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 67])
+def test_cuda_dense_engine_finite_times_inf_is_signed_inf(cuda, n):
+    """x · Inf gives ±Inf as in the plain product (the 3xTF32 cross terms
+    must not turn it into NaN), in w and in x, for both tile shapes."""
+    r = _rng(33 + n)
+    x = r.standard_normal((131, 75), np.float32)
+    w = r.standard_normal((75, n), np.float32)
+    w[20, 5] = np.inf
+    x[7, 40] = -np.inf
+    x, w = _t(x).to(cuda), _t(w).to(cuda)
+    out = _counted("dense_engine", lambda: t_dense.dense_engine_matmul(x, w))
+    plain = ref.dense_engine(x, w)
+    assert torch.isinf(plain[:, 5]).sum() >= 130
+    assert torch.isinf(plain[7]).sum() >= n - 1
+    torch.testing.assert_close(out, plain, equal_nan=True, **TOL)
 
 
 @pytest.mark.cuda
