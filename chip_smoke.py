@@ -16,10 +16,12 @@ scratch. In order:
    the card at the GNN path's full-scale Pubmed shapes (atol = rtol = 1e-4
    for the float32 products, exact for max, 1e-5 for sum), timed with
    CUDA events beside the plain version, one PyTorch library call and the
-   card's bound; fused_gnn (both layers' shapes) and seg_gather are timed
-   as the serve path calls them (with the graph's kept index) and
-   standalone (index built in the call), each index build alone, and the
-   library path with its index kept; dense_engine (3xTF32) is also held
+   card's bound; shard_spmm (both layers' shapes and a rectangular grid),
+   fused_gnn (both layers' shapes) and seg_gather are timed as the serve
+   path calls them (with the graph's kept index) and standalone (index
+   built in the call), each index build alone, and the library path with
+   its index kept (shard_spmm and fused_gnn: a cuSPARSE CSR product over
+   the same index, the dense einsum beside it); dense_engine (3xTF32) is also held
    to the float64 product (relative norm ``DENSE_REL``) at both Pubmed
    shapes;
 4. GNN serve phase: GNNServeEngine + Server over full-scale Pubmed with
@@ -135,6 +137,20 @@ def _ms(fn, budget_ms: float = 300.0) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _host_ms(fn, reps: int = 50) -> float:
+    """Host time of one call of ``fn`` in ms, enqueue only (no sync in the
+    loop). Where it exceeds the device time, the card waits on the host
+    and ``_ms`` measures this instead."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
 def _bound(nbytes: float, flops: float,
            peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -146,26 +162,28 @@ def _nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _record(results: dict, name, out, plain, kernel_fn, plain_fn, library_fn,
-            nbytes, flops, peak_flops=PEAK_F32_FLOPS, source=None,
-            **extra) -> None:
-    """Time a kernel beside its plain version and library call; add its
-    row of the ``kernels`` line to ``results``."""
-    err = (out.float() - plain.float()).abs().max().item()
+def _measure(out, plain, kernel_fn, plain_fn, library_fn, nbytes, flops,
+             peak_flops=PEAK_F32_FLOPS) -> dict:
+    """A kernel's error against its plain version, its time beside the
+    plain version's and the library call's, and its bound."""
     bound, by = _bound(nbytes, flops, peak_flops)
+    return {"max_abs_err": (out.float() - plain.float()).abs().max().item(),
+            "ms": _ms(kernel_fn), "plain_ms": _ms(plain_fn),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": _ms(library_fn) if library_fn else None}
+
+
+def _record(results: dict, name, measured: dict, source=None,
+            **extra) -> None:
+    """Add a kernel's row of the ``kernels`` line to ``results``."""
     row = {"name": name, "route": "cuda",
            "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
-           "replaces": REPLACES[name], "launches": 0,
-           "max_abs_err": err, "ms": _ms(kernel_fn),
-           "plain_ms": _ms(plain_fn), "bound_ms": bound,
-           "bound_by": by,
-           "library_ms": _ms(library_fn) if library_fn else None,
-           **extra}
+           "replaces": REPLACES[name], "launches": 0, **measured, **extra}
     results[name] = row
-    print(f"kernel {name}: max_abs_err {err:.3e} | kernel_ms "
+    print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e} | kernel_ms "
           f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} library_ms "
-          f"{row['library_ms']:.3f} bound_ms {bound:.3f} ({by}) "
-          f"{extra or ''}")
+          f"{row['library_ms']:.3f} bound_ms {row['bound_ms']:.3f} "
+          f"({row['bound_by']}) {extra or ''}")
 
 
 def _attention_check(label: str, out, plain, dtype) -> tuple[float, float]:
@@ -233,19 +251,79 @@ def kernel_phase(engine, ds) -> dict:
     def record(*args, **kw):
         _record(results, *args, **kw)
 
-    # shard_spmm: sage_mean's mean-normalized blocks, layer-0 features
-    blocks = gts["sage_mean"].blocks                              # (39, 39, 512, 512)
-    nnz = int((blocks != 0).sum().item())
+    # shard_spmm: sage_mean's mean-normalized blocks over the graph's kept
+    # linear index, as the serve path calls it: layer 0 (D 500), layer 1
+    # (D 16) and a rectangular grid (the first third of the destination
+    # shards against all source shards), and standalone at layer 0 (index
+    # built in the call). Each is held to the plain version, and timed
+    # beside its bound (index + h + out: only the nonzeros are needed), a
+    # cuSPARSE CSR product over the same index and the dense einsum.
+    mgt = gts["sage_mean"]
+    blocks, mindex = mgt.blocks, mgt.linear_index                # (39, 39, 512, 512)
+    if mindex.col.numel() != int((blocks != 0).sum().item()):
+        raise AssertionError(f"linear index holds {mindex.col.numel()} "
+                             f"entries, the blocks "
+                             f"{(blocks != 0).sum().item()}")
+    rect = blocks[: s // 3]
+    spmm_cases = {"layer0": (blocks, h, mindex),
+                  "layer1": (blocks, randn(s, n, 16), mindex),
+                  "rectangular": (rect, h, csr_index.linear_index(rect))}
+    spmm, outs = {}, {}
+    for label, (blk, hh, idx) in spmm_cases.items():
+        rows_dst, rows_src = blk.shape[0] * n, blk.shape[1] * n
+        out = shard_spmm.shard_spmm(blk, hh, index=idx)
+        plain = ref.shard_spmm(blk, hh)
+        torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+        sparse = torch.sparse_csr_tensor(idx.row_ptr, idx.col, idx.val,
+                                         size=(rows_dst, rows_src))
+
+        def library(sparse=sparse, hh=hh, rows_src=rows_src, shape=out.shape):
+            # the same function over the same kept index: cuSPARSE CSR x h
+            return (sparse @ hh.reshape(rows_src, -1)).reshape(shape)
+
+        torch.testing.assert_close(library(), plain, atol=1e-4, rtol=1e-4)
+        nnz = idx.col.numel()
+        index_bytes = _nbytes(idx.row_ptr, idx.col, idx.val)
+        spmm[label] = {
+            **_measure(out, plain,
+                       lambda: shard_spmm.shard_spmm(blk, hh, index=idx),
+                       lambda: ref.shard_spmm(blk, hh), library,
+                       index_bytes + _nbytes(hh, out),
+                       2.0 * nnz * hh.shape[-1]),
+            "library_einsum_ms": _ms(lambda: torch.einsum(
+                "ijvu,jud->ivd", blk, hh)),
+            "host_ms": _host_ms(
+                lambda: shard_spmm.shard_spmm(blk, hh, index=idx)),
+            "dense_bytes_bound_ms": _nbytes(blk, hh, out)
+            / PEAK_BYTES_PER_S * 1e3,
+            "nnz": nnz, "index_bytes": index_bytes,
+            "gathered_row_bytes": 4.0 * nnz * hh.shape[-1],
+            "shape": {"s_dst": blk.shape[0], "s_src": blk.shape[1], "n": n,
+                      "d": hh.shape[-1]}}
+        outs[label] = (out, plain)
+        print(f"shard_spmm {label}: {spmm[label]}")
+        del sparse, library
+    plain = outs["layer0"][1]
     out = shard_spmm.shard_spmm(blocks, h)
-    plain = ref.shard_spmm(blocks, h)
     torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
-    dense_flops = 2.0 * s * s * n * n * d
-    record("shard_spmm", out, plain,
-           lambda: shard_spmm.shard_spmm(blocks, h),
-           lambda: ref.shard_spmm(blocks, h),
-           lambda: torch.einsum("ijvu,jud->ivd", blocks, h),
-           _nbytes(blocks, h, out), 2.0 * nnz * d,
-           nnz=nnz, dense_ops_bound_ms=dense_flops / PEAK_F32_FLOPS * 1e3)
+    index_runs, standalone_runs = [], []
+    for _ in range(5):
+        index_runs.append(_ms(lambda: csr_index.linear_index(blocks)))
+        standalone_runs.append(_ms(lambda: shard_spmm.shard_spmm(blocks, h)))
+    print(f"shard_spmm: linear index build {np.median(index_runs):.3f} ms "
+          f"(rounds {', '.join(f'{t:.3f}' for t in index_runs)}); "
+          f"standalone call (index built in the call) "
+          f"{np.median(standalone_runs):.3f} ms (rounds "
+          f"{', '.join(f'{t:.3f}' for t in standalone_runs)})")
+    record("shard_spmm", spmm.pop("layer0"),
+           bound_peak="3.35 TB/s; f32 67 TFLOP/s (CUDA cores)",
+           library="cuSPARSE CSR x h over the kept index",
+           standalone_ms=float(np.median(standalone_runs)),
+           standalone_max_abs_err=(out - plain).abs().max().item(),
+           index_build_ms=float(np.median(index_runs)),
+           standalone_ms_rounds=standalone_runs,
+           index_build_ms_rounds=index_runs, **spmm)
+    del spmm_cases, outs, rect, out, plain
 
     # fused_gnn: gcn's normalized blocks over the graph's kept linear
     # index, as the serve path calls it, and standalone (index built in
@@ -305,13 +383,15 @@ def kernel_phase(engine, ds) -> dict:
               "bound_ms": l1_bound, "bound_by": l1_by,
               "max_abs_err": errs[1]}
     print(f"fused_gnn layer 1 (D 16 -> F 3): {layer1}")
-    record("fused_gnn", outs[0], plains[0],
-           lambda: fused_gnn.fused_gnn_layer(gblocks, h, w, activation="relu",
-                                             index=lindex),
-           lambda: ref.fused_gnn(gblocks, h, w, activation="relu"),
-           lambda: library_kept(0),
-           index_bytes + _nbytes(h, w, outs[0]),
-           2.0 * gnnz * d + 2.0 * rows * d * 16,
+    record("fused_gnn", _measure(
+               outs[0], plains[0],
+               lambda: fused_gnn.fused_gnn_layer(gblocks, h, w,
+                                                 activation="relu",
+                                                 index=lindex),
+               lambda: ref.fused_gnn(gblocks, h, w, activation="relu"),
+               lambda: library_kept(0),
+               index_bytes + _nbytes(h, w, outs[0]),
+               2.0 * gnnz * d + 2.0 * rows * d * 16),
            bound_peak="3.35 TB/s; f32 67 TFLOP/s (CUDA cores)",
            library="cuSPARSE CSR x h over the kept index, @ w, relu",
            library_einsum_ms=_ms(lambda: torch.relu(torch.einsum(
@@ -353,13 +433,15 @@ def kernel_phase(engine, ds) -> dict:
     second_bound, second_by = _bound(_nbytes(x2, w2, out2),
                                      3 * 2.0 * rows * 2 * d * 16,
                                      PEAK_TF32_FLOPS)
-    record("dense_engine", out, plain,
-           lambda: dense_engine.dense_engine_matmul(x, wp, bp,
-                                                    activation="relu"),
-           lambda: ref.dense_engine(x, wp, bp, activation="relu"),
-           lambda: torch.relu(torch.addmm(bp, x, wp)),
-           _nbytes(x, wp, bp, out), 3 * 2.0 * rows * d * d,
-           peak_flops=PEAK_TF32_FLOPS, bound_peak=tf32_peak,
+    record("dense_engine", _measure(
+               out, plain,
+               lambda: dense_engine.dense_engine_matmul(x, wp, bp,
+                                                        activation="relu"),
+               lambda: ref.dense_engine(x, wp, bp, activation="relu"),
+               lambda: torch.relu(torch.addmm(bp, x, wp)),
+               _nbytes(x, wp, bp, out), 3 * 2.0 * rows * d * d,
+               PEAK_TF32_FLOPS),
+           bound_peak=tf32_peak,
            f32_cuda_core_bound_ms=2.0 * rows * d * d / PEAK_F32_FLOPS * 1e3,
            rel_err_f64=rel64["pool"], rel_tol=DENSE_REL,
            concat_product={"shape": [rows, 2 * d, 16],
@@ -441,13 +523,14 @@ def kernel_phase(engine, ds) -> dict:
                              "version")
     library_kept_index_ms = _ms(lambda: library_reduce(*kept))
 
-    record("seg_gather", out, plain,
-           lambda: seg_gather.seg_gather_aggregate(*edges, z, op="max",
-                                                   index=index),
-           lambda: ref.seg_gather(*edges, z, op="max"),
-           library,
-           _nbytes(gt.edge_src, gt.edge_dst, gt.edge_valid, z, out),
-           float(valid * d),
+    record("seg_gather", _measure(
+               out, plain,
+               lambda: seg_gather.seg_gather_aggregate(*edges, z, op="max",
+                                                       index=index),
+               lambda: ref.seg_gather(*edges, z, op="max"),
+               library,
+               _nbytes(gt.edge_src, gt.edge_dst, gt.edge_valid, z, out),
+               float(valid * d)),
            valid_edges=valid, edge_slots=int(gt.edge_valid.numel()),
            sum_max_abs_err=(out_sum - plain_sum).abs().max().item(),
            standalone_ms=standalone_ms, index_build_ms=index_ms,
@@ -598,13 +681,15 @@ def attention_kernel_phase(dev, results: dict) -> None:
     library = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              enable_gqa=True)
     pairs = _attention_pairs(s, s)
-    _record(results, "flash_attention", out, plain,
-            lambda: flash_attention(q, k, v, causal=True),
-            lambda: ref.flash_attention(q, k, v, causal=True),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True),
-            _nbytes(q, k, v, out), 4.0 * dh * pairs * b * hq,
-            peak_flops=PEAK_BF16_FLOPS, source="flash_attention_tc",
+    _record(results, "flash_attention", _measure(
+                out, plain,
+                lambda: flash_attention(q, k, v, causal=True),
+                lambda: ref.flash_attention(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                _nbytes(q, k, v, out), 4.0 * dh * pairs * b * hq,
+                PEAK_BF16_FLOPS),
+            source="flash_attention_tc",
             launch_counter="flash_attention_tc",
             shape={"b": b, "hq": hq, "hkv": hkv, "sq": s, "skv": s, "dh": dh,
                    "dtype": "bfloat16", "causal": True},

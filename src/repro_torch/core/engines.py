@@ -54,8 +54,8 @@ class GraphTensors:
     @functools.cached_property
     def linear_index(self) -> csr.LinearIndex:
         """The blocks' nonzeros sorted by destination (CSR), built at the
-        first fused layer and kept: models that never fuse never build
-        it."""
+        first linear aggregation or fused layer and kept: models that
+        only gather never build it."""
         return csr.linear_index(self.blocks)
 
     @property
@@ -98,15 +98,18 @@ class GraphEngine:
                   op: Literal["linear", "max", "sum"] = "linear"
                   ) -> torch.Tensor:
         """h: (S, n, D) shard-grouped. Linear = weights baked into blocks
-        (sum/mean/gcn); max/sum go through the edge-list gather kernel."""
+        (sum/mean/gcn), walked through the graph's kept linear index;
+        max/sum go through the edge-list gather kernel."""
         if op == "linear":
-            return self.spmm(gt.blocks, h)
+            return resolve(self.backend).graph_aggregate(
+                gt.blocks, h, index=gt.linear_index)
         return resolve(self.backend).gather_aggregate(
             gt.edge_src, gt.edge_dst, gt.edge_valid, h, op=op,
             index=gt.gather_index)
 
     def spmm(self, blocks: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        """Shard-grid SpMM on explicit (S, S, n, n) blocks."""
+        """Shard-grid SpMM on explicit (S, S, n, n) blocks; their linear
+        index is built in the call."""
         return resolve(self.backend).graph_aggregate(blocks, h)
 
 

@@ -5,8 +5,9 @@ holds every edge whose destination falls in node-range i and whose source
 falls in node-range j, with at most ``n`` source / ``n`` destination nodes
 per shard (so ≤ n² edges per shard).
 
-Each shard's sub-adjacency is *densified* into an (n, n) block so the
-linear aggregation becomes a dense block product (kernels/shard_spmm).
+Each shard's sub-adjacency is *densified* into an (n, n) block: the
+reference's layout for its dense block product. The port's linear
+aggregation kernels walk the blocks' nonzeros (kernels/csr.py).
 The edge list per shard is also kept (padded COO) for the gather-based
 aggregator (kernels/seg_gather) used for max-pool. Host-side numpy; the
 arrays are bitwise equal to ``repro.core.sharding.shard_graph``'s.

@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the launchers (C symbol = name + "_launch") and their argument kinds:
 # "p" a pointer (tensor or None), "i" a C int, "f" a C float
 KERNELS = {
-    "shard_spmm": "pppiiii",
+    "shard_spmm": "ppppppiiiiii",
     "fused_gnn": "pppppppiiiiiii",
     "dense_engine": "pppppiiii",
     "seg_gather": "ppppiiiii",

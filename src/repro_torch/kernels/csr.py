@@ -7,8 +7,8 @@ graph by ``core.engines.GraphTensors`` and kept:
   row's source rows from the padded per-shard-pair edge lists; the
   ``seg_gather`` kernel walks it.
 - :class:`LinearIndex` (:func:`linear_index`) lists each destination
-  row's nonzeros of the densified (S, S, n, n) blocks, with their values;
-  the ``fused_gnn`` kernel walks it.
+  row's nonzeros of the densified (S_dst, S_src, n, n) blocks, with their
+  values; the ``shard_spmm`` and ``fused_gnn`` kernels walk it.
 
 In both, global destination row r = i·n + v and global source row
 j·n + u; a row's entries keep the order in which the TPU kernels visit
@@ -19,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.kernels import _lib
 
 
 def _row_ptr(dst: torch.Tensor, rows: int) -> torch.Tensor:
@@ -57,8 +59,8 @@ def gather_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                        src=src[order].to(torch.int32))
 
 
-# rows of more entries than this are hubs: the fused_gnn kernel gives
-# each a block of its own instead of one warp
+# rows of more entries than this are hubs: the shard_spmm and fused_gnn
+# kernels give each a block of its own instead of one warp
 HUB_ENTRIES = 32
 
 
@@ -92,3 +94,20 @@ def linear_index(blocks: torch.Tensor) -> LinearIndex:
                        col=(jj * n + uu)[order].to(torch.int32),
                        val=val[order].contiguous(),
                        hubs=hubs.reshape(-1).to(torch.int32))
+
+
+def check_linear_index(kernel: str, index: LinearIndex, rows: int) -> None:
+    """Raise unless ``index`` is one a kernel can walk for ``rows``
+    destination rows: contiguous 1-d int32 ``row_ptr`` of ``rows + 1``
+    offsets, int32 ``col`` and float32 ``val`` of one length, int32
+    ``hubs``. (The wrapper's device check covers the index's tensors.)"""
+    _lib.check(kernel, "index.row_ptr", index.row_ptr, torch.int32, 1)
+    _lib.check(kernel, "index.col", index.col, torch.int32, 1)
+    _lib.check(kernel, "index.val", index.val, torch.float32, 1)
+    _lib.check(kernel, "index.hubs", index.hubs, torch.int32, 1)
+    if index.row_ptr.numel() != rows + 1 or \
+            index.col.numel() != index.val.numel():
+        raise ValueError(f"{kernel}: index has {index.row_ptr.numel() - 1} "
+                         f"rows and {index.col.numel()} / "
+                         f"{index.val.numel()} entries; the blocks {rows} "
+                         f"rows")

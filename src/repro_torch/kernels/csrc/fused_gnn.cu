@@ -12,7 +12,8 @@
 // L2, since the 40 MB of h fit in the 50 MB L2. The operations
 // (2 nnz D + 2 S n D F, float32 FMA) are a tenth of that in time.
 //
-// Design: L lanes own one destination row (L = 32 for D > 128, 8 for
+// Design: csr_walk.cuh's row walk, shared with shard_spmm. L lanes own
+// one destination row (L = 32 for D > 128, 8 for
 // D <= 128, 4 for D <= 16, so small D packs 8 rows into a warp), each
 // lane up to 16 of its columns in registers, as float4 when D % 4 == 0
 // and h is 16-byte aligned. A row group walks its row's (col, val)
@@ -40,43 +41,14 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "csr_walk.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+using namespace gnnk::walk;
+
 constexpr int FC = 16;         // output columns per chunk
 constexpr unsigned kFull = 0xffffffffu;
-
-// Column of value j of lane l (of L) within a chunk of L * 16 columns.
-template <int L, bool kVec>
-__device__ __forceinline__ int column(int l, int j) {
-  return kVec ? 4 * L * (j / 4) + 4 * l + (j % 4) : L * j + l;
-}
-
-// This lane's PL values of source row `hr` in the chunk at c0 (0 past D).
-template <int L, int PL, bool kVec>
-__device__ __forceinline__ void load_row(const float* __restrict__ hr, int l,
-                                         int c0, int d, float (&x)[PL]) {
-  if (kVec) {
-#pragma unroll
-    for (int q = 0; q < PL / 4; ++q) {
-      const int col = c0 + column<L, true>(l, 4 * q);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (col < d) v = __ldg(reinterpret_cast<const float4*>(hr + col));
-      x[4 * q] = v.x;
-      x[4 * q + 1] = v.y;
-      x[4 * q + 2] = v.z;
-      x[4 * q + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < PL; ++j) {
-      const int col = c0 + column<L, false>(l, j);
-      x[j] = col < d ? __ldg(hr + col) : 0.f;
-    }
-  }
-}
 
 // Sum the N partial outputs v over the row's lanes (xor offsets OFF, OFF/2,
 // .., 1), halving the values a lane keeps at each step while it keeps
@@ -99,68 +71,6 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[FC], int lane,
     } else {
       v[0] += __shfl_xor_sync(kFull, v[0], OFF);
       reduce_scatter<1, OFF / 2>(v, lane, base);
-    }
-  }
-}
-
-// Per-configuration constants: L lanes a row, PL columns a lane, INF
-// entries of a row in flight, ITERS row rounds a warp.
-template <int L>
-struct Cfg {
-  static constexpr int PL = L == 4 ? 4 : 16;
-  static constexpr int C = L * PL;              // columns a chunk holds
-  static constexpr int INF = L == 4 ? 8 : 4;
-  static constexpr int GROUPS = 32 / L;         // rows a warp holds at once
-  static constexpr int ITERS = L == 32 ? 2 : 1;
-  static constexpr int ROWS = WARPS * GROUPS * ITERS;  // rows a block owns
-  static constexpr int R = FC >= L ? FC / L : 1;       // outputs a lane keeps
-};
-
-// agg[j] = sum over the row's entries [begin, end) of val * h[col][c0 +
-// column j], INF rows of h in flight; the next INF (col, val) pairs load
-// while the current rows are applied.
-template <int L, bool kVec>
-__device__ __forceinline__ void gather(const int* __restrict__ col,
-                                       const float* __restrict__ val,
-                                       const float* __restrict__ h, int rows,
-                                       int d, int c0, int l, int begin,
-                                       int end, float (&agg)[Cfg<L>::PL]) {
-  constexpr int PL = Cfg<L>::PL, INF = Cfg<L>::INF;
-  int u[INF];
-  float a[INF];
-#pragma unroll
-  for (int r = 0; r < INF; ++r) {
-    u[r] = begin + r < end ? __ldg(col + begin + r) : -1;
-    a[r] = begin + r < end ? __ldg(val + begin + r) : 0.f;
-  }
-  for (int e = begin; e < end; e += INF) {
-    float x[INF][PL];
-#pragma unroll
-    for (int r = 0; r < INF; ++r) {
-      // columns outside h (an index not made by linear_index) are skipped
-      if (u[r] >= 0 && u[r] < rows)
-        load_row<L, PL, kVec>(h + (long long)u[r] * d, l, c0, d, x[r]);
-      else
-        a[r] = 0.f;
-    }
-    int un[INF];
-    float an[INF];
-#pragma unroll
-    for (int r = 0; r < INF; ++r) {
-      const int k = e + INF + r;
-      un[r] = k < end ? __ldg(col + k) : -1;
-      an[r] = k < end ? __ldg(val + k) : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < INF; ++r) {
-      if (a[r] == 0.f) continue;
-#pragma unroll
-      for (int j = 0; j < PL; ++j) agg[j] = fmaf(a[r], x[r][j], agg[j]);
-    }
-#pragma unroll
-    for (int r = 0; r < INF; ++r) {
-      u[r] = un[r];
-      a[r] = an[r];
     }
   }
 }
@@ -210,15 +120,6 @@ __device__ __forceinline__ void extract(const float (&agg)[Cfg<L>::PL],
       for (int q = 0; q < FC; ++q) p[q] = fmaf(agg[j], ws[q][c], p[q]);
     }
   }
-}
-
-// the row's entries [begin, end), clamped to [0, nnz]: an index that is
-// not linear_index's reads nothing out of range
-__device__ __forceinline__ void row_span(const int* __restrict__ row_ptr,
-                                         int row, int nnz, int& begin,
-                                         int& end) {
-  begin = max(0, row_ptr[row]);
-  end = min(nnz, row_ptr[row + 1]);
 }
 
 // One hub row (more than hub_min entries) for the whole block: each of
@@ -278,6 +179,7 @@ fused_gnn_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                  int nnz, int n_hubs, int hub_min) {
   using K = Cfg<L>;
   constexpr int PL = K::PL, C = K::C;
+  constexpr int R = FC >= L ? FC / L : 1;  // outputs a lane keeps
   // W chunk, transposed; sized for the hub blocks' L = 32 layout
   __shared__ __align__(16) float ws[FC][Cfg<32>::C + 4];
   __shared__ float part[WARPS][FC];
@@ -326,7 +228,7 @@ fused_gnn_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
         if (mine && (L <= FC || (l & (L / FC - 1)) == 0)) {
           float* o = out + (long long)row * f + f0 + base;
 #pragma unroll
-          for (int i = 0; i < K::R; ++i) {
+          for (int i = 0; i < R; ++i) {
             if (f0 + base + i >= f) continue;
             const float y = dc == 0 ? p[i] : o[i] + p[i];
             o[i] = dc == nd - 1 ? gnnk::activate(y, act) : y;

@@ -50,16 +50,7 @@ def fused_gnn_layer(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                          f"w {tuple(w.shape)}")
     if index is None:
         index = linear_index(blocks)
-    _lib.check("fused_gnn", "index.row_ptr", index.row_ptr, torch.int32, 1)
-    _lib.check("fused_gnn", "index.col", index.col, torch.int32, 1)
-    _lib.check("fused_gnn", "index.val", index.val, torch.float32, 1)
-    _lib.check("fused_gnn", "index.hubs", index.hubs, torch.int32, 1)
-    if index.row_ptr.numel() != s * n + 1 or \
-            index.col.numel() != index.val.numel():
-        raise ValueError(f"fused_gnn: index has {index.row_ptr.numel() - 1} "
-                         f"rows and {index.col.numel()} / "
-                         f"{index.val.numel()} entries; the blocks {s * n} "
-                         f"rows")
+    csr.check_linear_index("fused_gnn", index, s * n)
     out = torch.empty((s, n, f), dtype=torch.float32, device=h.device)
     if out.numel():
         _lib.launch("fused_gnn", index.row_ptr, index.col, index.val,

@@ -17,9 +17,10 @@ def dense_matmul(x, w, b=None, *, activation: str = "none", backend=None):
                                                   activation=activation)
 
 
-def graph_aggregate(blocks, h, *, backend=None):
-    """Linear shard-grid aggregation: out[i] = Σ_j A[i,j] @ h[j]."""
-    return registry.resolve(backend).graph_aggregate(blocks, h)
+def graph_aggregate(blocks, h, *, index=None, backend=None):
+    """Linear shard-grid aggregation: out[i] = Σ_j A[i,j] @ h[j].
+    ``index``: the blocks' ``csr.linear_index``, if the caller keeps one."""
+    return registry.resolve(backend).graph_aggregate(blocks, h, index=index)
 
 
 def fused_aggregate_extract(blocks, h, w, *, activation: str = "none",

@@ -55,21 +55,28 @@ def fused_gnn(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor, *,
     return _activate(out, activation).to(h.dtype)
 
 
-def fused_gnn_indexed(index, h: torch.Tensor, w: torch.Tensor, *,
-                      activation: str = "none") -> torch.Tensor:
-    """``fused_gnn`` over the blocks' destination-sorted nonzeros
+def spmm_indexed(index, h: torch.Tensor) -> torch.Tensor:
+    """``shard_spmm`` over the blocks' destination-sorted nonzeros
     (``csr.linear_index``: ``row_ptr``, ``col``, ``val``), walked as the
-    kernel walks it: each row sums val · h[col], then meets W. h (S, n, D),
-    w (D, F) -> (S, n, F) with S·n = len(row_ptr) - 1. The tests' oracle
-    for the index; the wrappers run :func:`fused_gnn`."""
+    kernels walk it: each row sums val · h[col] in entry order. h
+    (S_src, n, D) -> (S_dst, n, D) with S_dst·n = len(row_ptr) - 1. The
+    tests' oracle for the index; the wrappers run :func:`shard_spmm`."""
     _, n, d = h.shape
     rows = index.row_ptr.numel() - 1
     counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
     dst = torch.repeat_interleave(torch.arange(rows, device=h.device), counts)
     vals = h.reshape(-1, d).float()[index.col.long()] * index.val[:, None]
     agg = torch.zeros((rows, d), device=h.device).index_add_(0, dst, vals)
-    out = _activate(agg @ w.float(), activation)
-    return out.reshape(rows // n, n, -1).to(h.dtype)
+    return agg.reshape(rows // n, n, d).to(h.dtype)
+
+
+def fused_gnn_indexed(index, h: torch.Tensor, w: torch.Tensor, *,
+                      activation: str = "none") -> torch.Tensor:
+    """``fused_gnn`` over the blocks' linear index: act(spmm_indexed · W).
+    h (S, n, D), w (D, F) -> (S, n, F). The tests' oracle for the index;
+    the wrappers run :func:`fused_gnn`."""
+    agg = spmm_indexed(index, h.float())
+    return _activate(agg @ w.float(), activation).to(h.dtype)
 
 
 def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,

@@ -35,8 +35,10 @@ class KernelBackend(Protocol):
         """act(x @ w + b); x (M, K), w (K, N), b (N,) or None."""
         ...
 
-    def graph_aggregate(self, blocks, h):
-        """Linear shard-grid aggregation: out[i] = Σ_j A[i,j] @ h[j]."""
+    def graph_aggregate(self, blocks, h, *, index=None):
+        """Linear shard-grid aggregation: out[i] = Σ_j A[i,j] @ h[j].
+        ``index``: the blocks' ``csr.linear_index`` if the caller keeps
+        one."""
         ...
 
     def fused_aggregate_extract(self, blocks, h, w, *,
@@ -65,8 +67,8 @@ class CudaBackend:
     def dense_matmul(self, x, w, b=None, *, activation="none"):
         return dense_engine_matmul(x, w, b, activation=activation)
 
-    def graph_aggregate(self, blocks, h):
-        return shard_spmm(blocks, h)
+    def graph_aggregate(self, blocks, h, *, index=None):
+        return shard_spmm(blocks, h, index=index)
 
     def fused_aggregate_extract(self, blocks, h, w, *, activation="none",
                                 index=None):
@@ -91,7 +93,8 @@ class ReferenceBackend:
     def dense_matmul(self, x, w, b=None, *, activation="none"):
         return ref.dense_engine(x, w, b, activation=activation)
 
-    def graph_aggregate(self, blocks, h):
+    def graph_aggregate(self, blocks, h, *, index=None):
+        # the plain version of the whole function: the index is not used
         return ref.shard_spmm(blocks, h)
 
     def fused_aggregate_extract(self, blocks, h, w, *, activation="none",

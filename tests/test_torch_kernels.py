@@ -313,8 +313,8 @@ def _counted(kernel, fn):
 
 
 def _blocks(r, shape, density):
-    """Random 0/1 blocks; at low density most 64x16 slices are empty (the
-    kernels skip those), and destination shard 0 has no edge at all."""
+    """Random 0/1 blocks; at low density most rows are empty or short,
+    and destination shard 0 has no edge at all."""
     a = (r.random(shape) < density).astype(np.float32)
     a[0] = 0.0
     return a
@@ -322,12 +322,51 @@ def _blocks(r, shape, density):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("density", [0.2, 0.003])
-def test_cuda_shard_spmm_matches_plain(cuda, density):
-    r = _rng(21)
-    a = _t(_blocks(r, (2, 3, 70, 70), density)).to(cuda)
-    h = _t(r.standard_normal((3, 70, 83), np.float32)).to(cuda)
-    out = _counted("shard_spmm", lambda: t_spmm.shard_spmm(a, h))
-    torch.testing.assert_close(out, ref.shard_spmm(a, h), **TOL)
+@pytest.mark.parametrize("d", [3, 16, 83, 500, 700])
+def test_cuda_shard_spmm_matches_plain(cuda, density, d):
+    """With the blocks' kept index and standalone, on a square (3 x 3) and
+    a rectangular (2 x 3) grid, at D 3 (odd, several rows a warp), 16,
+    83 (odd), 500 (Pubmed, float4) and 700 (two D chunks), with empty
+    rows (destination shard 0) and a hub row of 120 or more entries (row
+    1 of shard 1); at density 0.2 most rows of shard 1 are hubs too."""
+    r = _rng(21 + d)
+    n = 70
+    h = _t(r.standard_normal((3, n, d), np.float32)).to(cuda)
+    for s_dst in (3, 2):
+        a = _blocks(r, (s_dst, 3, n, n), density)
+        a[1, :, 1, :40] = 1.0
+        a = _t(a).to(cuda)
+        index = csr.linear_index(a)
+        counts = (index.row_ptr[1:] - index.row_ptr[:-1]).cpu()
+        assert (counts[:n] == 0).all() and counts[n + 1] >= 3 * 40
+        assert n + 1 in index.hubs.tolist()
+        plain = ref.shard_spmm(a, h)
+        torch.testing.assert_close(ref.spmm_indexed(index, h), plain, **TOL)
+        for idx in (index, None):
+            out = _counted("shard_spmm", lambda: t_spmm.shard_spmm(
+                a, h, index=idx))
+            assert out.shape == (s_dst, n, d)
+            torch.testing.assert_close(out, plain, **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_shard_spmm_reads_nothing_outside_a_bad_index(cuda):
+    """An index not made by linear_index: a column past h and a last row
+    pointer past the entry list. The kernel skips the column and stops at
+    the list's end instead of reading out of range."""
+    r = _rng(32)
+    h = _t(r.standard_normal((2, 4, 8), np.float32)).to(cuda)
+    a = torch.zeros((2, 2, 4, 4), device=cuda)
+    bad = csr.LinearIndex(
+        row_ptr=torch.tensor([0, 2, 2, 2, 2, 2, 2, 2, 9], dtype=torch.int32,
+                             device=cuda),
+        col=torch.tensor([3, 1000], dtype=torch.int32, device=cuda),
+        val=torch.tensor([2.0, 1.0], device=cuda),
+        hubs=torch.zeros(0, dtype=torch.int32, device=cuda))
+    out = _counted("shard_spmm", lambda: t_spmm.shard_spmm(a, h, index=bad))
+    expect = torch.zeros_like(out)
+    expect[0, 0] = 2.0 * h.reshape(-1, 8)[3]
+    torch.testing.assert_close(out, expect, **TOL)
 
 
 @pytest.mark.cuda

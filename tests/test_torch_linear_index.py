@@ -1,4 +1,5 @@
-"""The destination-sorted index of the blocks' nonzeros (fused_gnn's).
+"""The destination-sorted index of the blocks' nonzeros (fused_gnn's and
+shard_spmm's).
 
 ``csr.linear_index`` is held to the blocks it came from (scattering
 ``val`` back at (row, col) rebuilds them exactly; each row in (j, u)
@@ -232,18 +233,23 @@ def test_graph_tensors_carry_their_blocks_index(normalize, loops):
 
 
 def test_fused_layer_passes_the_graphs_index(monkeypatch):
-    """graph_first (the fused gcn layer) builds the graph's index at its
-    first call and hands it to the backend; a non-fused layer never
-    builds it."""
+    """graph_first (the fused gcn layer) hands the graph's kept index to
+    the backend; the unfused layer hands the same kept index to
+    graph_aggregate (shard_spmm walks it too), building it at its first
+    call."""
     sg, gt = _graph("gcn", True)
     seen = []
 
     class Spy(registry.CudaBackend):
         def fused_aggregate_extract(self, blocks, h, w, *, activation="none",
                                     index=None):
-            seen.append(index)
+            seen.append(("fused", index))
             return super().fused_aggregate_extract(
                 blocks, h, w, activation=activation, index=index)
+
+        def graph_aggregate(self, blocks, h, *, index=None):
+            seen.append(("aggregate", index))
+            return super().graph_aggregate(blocks, h, index=index)
 
     r = np.random.default_rng(46)
     h = gt.group(_t(r.standard_normal((sg.num_nodes, 6), np.float32)))
@@ -253,8 +259,11 @@ def test_fused_layer_passes_the_graphs_index(monkeypatch):
     ctrl = GNNeratorController(dense=DenseEngine(spy), graph=GraphEngine(spy))
     unfused = GNNeratorController(dense=DenseEngine(spy),
                                   graph=GraphEngine(spy), fuse=False)
+    assert "linear_index" not in gt.__dict__
     expect = unfused.graph_first(gt, h, w, activation="relu")
-    assert "linear_index" not in gt.__dict__ and not seen
+    index = gt.__dict__["linear_index"]
+    assert [k for k, _ in seen] == ["aggregate"] and seen[0][1] is index
     out = ctrl.graph_first(gt, h, w, activation="relu")
-    assert seen == [gt.linear_index]
+    assert [k for k, _ in seen] == ["aggregate", "fused"]
+    assert seen[1][1] is index and gt.linear_index is index
     torch.testing.assert_close(out, expect, **TOL)
