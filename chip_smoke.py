@@ -5,9 +5,9 @@
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it,
 and fails (non-zero exit, no result line) without them. Device memory:
-~5 GB of Pubmed block grids, then (after they are freed) 16.4 GB of
-qwen3-8b weights plus ~1.2 GB of KV cache and a few GB of plain-attention
-scratch. In order:
+~6.4 GB of Pubmed block grids for serving and as much again for training,
+then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
+KV cache and a few GB of plain-attention scratch. In order:
 
 1. device check: prints ``nvidia-smi``'s name and power limit; TF32 off;
 2. build: compiles ``src/repro_torch/kernels/csrc`` for sm_90a and prints
@@ -18,17 +18,31 @@ scratch. In order:
    CUDA events beside the plain version, one PyTorch library call and the
    card's bound; shard_spmm (both layers' shapes and a rectangular grid),
    fused_gnn (both layers' shapes) and seg_gather are timed as the serve
-   path calls them (with the graph's kept index) and standalone (index
+   path calls them (shard_spmm also over gat's kept index with one
+   head's attention weights as its values, at D 8 and D 3) (with the graph's kept index) and standalone (index
    built in the call), each index build alone, and the library path with
    its index kept (shard_spmm and fused_gnn: a cuSPARSE CSR product over
    the same index, the dense einsum beside it); dense_engine (3xTF32) is also held
    to the float64 product (relative norm ``DENSE_REL``) at both Pubmed
    shapes;
 4. GNN serve phase: GNNServeEngine + Server over full-scale Pubmed with
-   gcn, sage_mean and sage_max (hidden 16, 2 layers); each GNN kernel
-   must launch as often as ``GNN_LAUNCHES`` says; each model's full-graph
-   logits must match the same model on the ``reference`` backend within
-   1e-4;
+   gcn, sage_mean, sage_max, gin and gat (hidden 16, 2 layers, gat 2
+   heads); each GNN kernel must launch as often as ``GNN_LAUNCHES`` says,
+   and each model's forward as ``FORWARD_LAUNCHES`` says; each model's
+   full-graph logits must match the same model on the ``reference``
+   backend within 1e-4;
+4b. GNN train phase, full-batch, each arch on full-scale Pubmed: the
+   step-0 gradient of every parameter through the kernels must be within
+   ``GRAD_REL`` (relative norm) of the ``reference`` backend's; one train
+   step must launch exactly its forward's kernels; ``runtime.fit`` runs
+   ``TRAIN_STEPS`` steps at lr 1e-2 and the last loss must be below the
+   first; the trained executable's logits must equal a fresh
+   ``runtime.compile`` with the trained parameters; the median step,
+   forward, backward and update times are printed, and one step is
+   traced with ``torch.profiler`` (kernel time by name, idle share);
+4c. GNN train phase, mini-batch: gcn with ``MB_BATCH_NODES`` seeds and
+   fanout ``MB_FANOUT`` for ``MB_STEPS`` steps; the step time and its
+   host part (sample + shard + upload, and the index build) are printed;
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -54,6 +68,7 @@ No phase catches its own failure: any failure raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import pathlib
@@ -74,7 +89,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
-ARCHS = ("gcn", "sage_mean", "sage_max")
+ARCHS = ("gcn", "sage_mean", "sage_max", "gin", "gat")
 REPLACES = {
     "shard_spmm": "src/repro/kernels/shard_spmm.py:69",
     "fused_gnn": "src/repro/kernels/fused_gnn.py:88",
@@ -111,11 +126,36 @@ ATTN_REL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 # relative norm: float32 accumulation reads ~1e-7 at K = 500-1000, one
 # TF32 pass ~3e-4 (PERF.md)
 DENSE_REL = 1e-5
-# kernel launches of the GNN serve run: one cold forward per model (gcn
-# 2 fused layers; sage_mean 2 shard_spmm + 2 dense; sage_max 4 dense + 2
-# gathers), later requests read the cached logits
-GNN_LAUNCHES = {"shard_spmm": 2, "fused_gnn": 2, "dense_engine": 6,
-                "seg_gather": 2}
+# kernel launches of one forward (hidden 16, 2 layers): gcn 2 fused
+# layers; sage_mean 2 shard_spmm + 2 dense; sage_max 4 dense (pool and
+# concat per layer) + 2 gathers; gin per layer 1 shard_spmm + 2 dense
+# (its MLP); gat 1 dense (z = h W) per layer and 1 shard_spmm per head:
+# 2 heads on layer 0, 1 on layer 1. A train step launches its forward's
+# kernels and no more (the backward is autograd of the plain versions).
+FORWARD_LAUNCHES = {
+    "gcn": {"fused_gnn": 2},
+    "sage_mean": {"shard_spmm": 2, "dense_engine": 2},
+    "sage_max": {"dense_engine": 4, "seg_gather": 2},
+    "gin": {"shard_spmm": 2, "dense_engine": 4},
+    "gat": {"shard_spmm": 3, "dense_engine": 2},
+}
+# the GNN serve run: one cold forward per model, later requests read the
+# cached logits
+GNN_LAUNCHES = {k: sum(f.get(k, 0) for f in FORWARD_LAUNCHES.values())
+                for k in ("shard_spmm", "fused_gnn", "dense_engine",
+                          "seg_gather")}
+# step-0 gradients, cuda vs reference backend, relative norm per
+# parameter. The backward is the same plain autograd on both sides; the
+# forwards differ by the kernels' rounding (3xTF32 products, other
+# summation orders: ~1e-7 relative on the logits), which reaches the
+# gradients through the saved activations. 1e-4 sits ~100x above that,
+# and a wrong kernel (a missed entry, a transposed index) is off by O(1).
+GRAD_REL = 1e-4
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-2
+MB_BATCH_NODES = 1024
+MB_FANOUT = (10, 5)
+MB_STEPS = 4
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -235,6 +275,7 @@ def kernel_phase(engine, ds) -> dict:
     from repro_torch.kernels import csr as csr_index
     from repro_torch.kernels import dense_engine, fused_gnn, ref, seg_gather
     from repro_torch.kernels import shard_spmm
+    from repro_torch.runtime.forward import gat_attention
 
     dev = engine.device
     gts = {a: engine.executable(f"{a}@pubmed", "pubmed").gt for a in ARCHS}
@@ -303,6 +344,37 @@ def kernel_phase(engine, ds) -> dict:
         outs[label] = (out, plain)
         print(f"shard_spmm {label}: {spmm[label]}")
         del sparse, library
+    # gat's heads: the kernel over gat's kept index with one head's
+    # attention weights as its values (shard_spmm_indexed, no blocks), at
+    # layer 0's D 8 (16 hidden / 2 heads) and layer 1's D 3; the weights
+    # are a softmax of random scores, as the forward makes them
+    agt = gts["gat"]
+    aindex = agt.linear_index
+    alpha = gat_attention(aindex, csr_index.entry_rows(aindex),
+                          randn(rows, 1), randn(rows, 1), 0.2)
+    aindex = dataclasses.replace(aindex, val=alpha[:, 0].contiguous())
+    for dd in (8, 3):
+        hh = randn(s, n, dd)
+        out = shard_spmm.shard_spmm_indexed(aindex, hh)
+        plain = ref.spmm_indexed(aindex, hh)
+        torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+        sparse = torch.sparse_csr_tensor(aindex.row_ptr, aindex.col,
+                                         aindex.val, size=(rows, rows))
+        nnz = aindex.col.numel()
+        index_bytes = _nbytes(aindex.row_ptr, aindex.col, aindex.val)
+        spmm[f"gat_head_d{dd}"] = {
+            **_measure(out, plain,
+                       lambda: shard_spmm.shard_spmm_indexed(aindex, hh),
+                       lambda: ref.spmm_indexed(aindex, hh),
+                       lambda: (sparse @ hh.reshape(rows, -1)).reshape(
+                           s, n, -1),
+                       index_bytes + _nbytes(hh, out), 2.0 * nnz * dd),
+            "host_ms": _host_ms(
+                lambda: shard_spmm.shard_spmm_indexed(aindex, hh)),
+            "nnz": nnz, "shape": {"rows": rows, "d": dd}}
+        print(f"shard_spmm gat_head_d{dd}: {spmm[f'gat_head_d{dd}']}")
+        del sparse
+
     plain = outs["layer0"][1]
     out = shard_spmm.shard_spmm(blocks, h)
     torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
@@ -578,7 +650,11 @@ def serve_phase(engine, ds, args, kernels) -> dict:
 
     for arch in ARCHS:
         exe = engine.executable(f"{arch}@pubmed", "pubmed")
-        logits = exe.forward()
+        logits, fwd_launches = _launched(exe.forward)
+        if fwd_launches != FORWARD_LAUNCHES[arch]:
+            raise AssertionError(f"{arch}: a forward launched "
+                                 f"{fwd_launches}, expected "
+                                 f"{FORWARD_LAUNCHES[arch]}")
         ref_exe = runtime.compile(
             exe.spec, ds, backend="reference", params=exe.params,
             max_shard_n=engine.max_shard_n, store=engine.store,
@@ -599,9 +675,191 @@ def serve_phase(engine, ds, args, kernels) -> dict:
             fwd()
         fwd_ms = (time.perf_counter() - t0) / 3 * 1e3
         print(f"parity {arch}: logits {tuple(logits.shape)} vs reference "
-              f"backend max_abs_err {err:.3e} | full-graph forward "
+              f"backend max_abs_err {err:.3e} (|logit| max "
+              f"{expect.abs().max().item():.3e}) | full-graph forward "
               f"{fwd_ms:.3f} ms (host clock, synchronized)")
     return launches
+
+
+def _launched(fn):
+    """``fn()`` and the kernel launches it made (nonzero counts only)."""
+    from repro_torch.kernels import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _lib.launches().items() if v}
+
+
+def _step_split(tr, batch, reps: int = 10) -> dict:
+    """Median host times (ms, each part ended by a sync) of a train
+    step's forward (recorded by autograd, with the loss), its backward
+    and the AdamW update, run part by part as ``step_fn`` runs them, and
+    of ``step_fn`` whole."""
+    from repro_torch import runtime
+    from repro_torch.training.optimizer import (adamw_update, tree_leaves,
+                                                tree_unflatten)
+
+    fwd = tr.executable._forward_fn()
+    h, labels, mask = batch
+    parts = {"forward": [], "backward": [], "update": [], "step": []}
+    for _ in range(reps):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(tr.params)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = runtime.masked_cross_entropy(
+            fwd(tree_unflatten(tr.params, leaves), h), labels, mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adamw_update(tree_unflatten(tr.params, grads), tr.opt_state,
+                     tr.params, tr.opt_cfg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tr.step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key].append(dt * 1e3)
+    return {key: float(np.median(v)) for key, v in parts.items()}
+
+
+def train_phase(engine, ds, card: str) -> dict:
+    """Full-batch training of each arch on Pubmed through the kernels:
+    step-0 gradients held to the reference backend, one step's launches
+    equal to its forward's, ``runtime.fit`` for ``TRAIN_STEPS`` steps with
+    the loss falling, the trained executable equal to a fresh compile,
+    and the step's time split. Returns the launches of the counted steps,
+    summed over the archs."""
+    from repro_torch import runtime
+    from repro_torch.runtime.executable import _flatten_params
+
+    dev, quiet = engine.device, (lambda line: None)
+    store = runtime.GraphStore()      # one graph build per signature
+    kw = dict(device=dev, max_shard_n=engine.max_shard_n, store=store)
+    step_launches: dict = {}
+    for arch in ARCHS:
+        served = engine.executable(f"{arch}@pubmed", "pubmed")
+        spec, params = served.spec, served.params
+        t0 = time.perf_counter()
+        trainers = {
+            backend: runtime.TrainableExecutable(
+                runtime.compile(spec, ds, backend=backend, params=params,
+                                **kw),
+                ds.labels, train_mask=ds.train_mask)
+            for backend in ("cuda", "reference")}
+        setup_s = time.perf_counter() - t0
+        tr = trainers["cuda"]
+        batch = tr.data(0)
+        (loss, _, grads), launches = _launched(
+            lambda: tr.loss_and_grads(tr.params, batch))
+        tr_ref = trainers["reference"]
+        loss_ref, _, grads_ref = tr_ref.loss_and_grads(tr_ref.params,
+                                                       tr_ref.data(0))
+        ours, theirs = _flatten_params(grads), _flatten_params(grads_ref)
+        rels = {name: float(np.linalg.norm(ours[name] - g) / max(
+                    np.linalg.norm(g), 1e-30)) for name, g in theirs.items()}
+        worst = max(rels, key=rels.get)
+        if rels[worst] > GRAD_REL or not all(
+                np.isfinite(g).all() for g in ours.values()):
+            raise AssertionError(f"{arch}: step-0 gradients vs reference "
+                                 f"backend, relative norms {rels} (limit "
+                                 f"{GRAD_REL})")
+        _, launches = _launched(lambda: tr.step_fn(tr.params, tr.opt_state,
+                                                   batch))
+        if launches != FORWARD_LAUNCHES[arch]:
+            raise AssertionError(f"{arch}: a train step launched {launches},"
+                                 f" its forward {FORWARD_LAUNCHES[arch]}")
+        for k, v in launches.items():
+            step_launches[k] = step_launches.get(k, 0) + v
+
+        ms = _step_split(tr, batch)
+
+        t0 = time.perf_counter()
+        res = runtime.fit(spec, ds, steps=TRAIN_STEPS, lr=TRAIN_LR,
+                          params=params, log_every=1, log=quiet, **kw)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        losses = [loss for _, loss in res.history]
+        if len(losses) != TRAIN_STEPS or not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch}: losses {losses} did not fall")
+        fresh = runtime.compile(spec, ds, params=res.params, **kw)
+        trained, again = res.executable.forward(), fresh.forward()
+        if not torch.equal(trained, again):
+            raise AssertionError(
+                f"{arch}: the trained executable's logits differ from a "
+                f"fresh compile's by {(trained - again).abs().max().item()}")
+        print(f"train {arch} ({card}, Pubmed full-batch): step-0 loss "
+              f"{loss.item():.6f} (reference {loss_ref.item():.6f}), "
+              f"gradient relative norms max {rels[worst]:.3e} at {worst} "
+              f"(limit {GRAD_REL}); step launches {launches}; median ms (host "
+              f"clock, synchronized): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; fit {TRAIN_STEPS} steps in {fit_s:.3f} s, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, train accuracy "
+              f"{res.train_accuracy():.3f}; setup {setup_s:.1f} s")
+        _profile(lambda: tr.step_fn(tr.params, tr.opt_state, batch),
+                 f"train {arch} step", card)
+        del trainers, tr, tr_ref, res, fresh, grads, grads_ref
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step_launches
+
+
+def minibatch_phase(ds, dev, card: str, max_shard_n: int) -> None:
+    """gcn mini-batch training on Pubmed: ``MB_STEPS`` steps of
+    ``MB_BATCH_NODES`` seeds, fanout ``MB_FANOUT``; each step's time and
+    its host part."""
+    from repro_torch import runtime
+    from repro_torch.gnn.models import ZooSpec
+    from repro_torch.kernels import csr
+
+    prof = ds.profile
+    spec = ZooSpec("gcn", prof.feature_dim, 16, prof.num_classes)
+    t0 = time.perf_counter()
+    res = runtime.fit(spec, ds, steps=MB_STEPS, lr=TRAIN_LR,
+                      batch_nodes=MB_BATCH_NODES, fanout=MB_FANOUT,
+                      device=dev, max_shard_n=max_shard_n, log_every=1,
+                      log=lambda line: None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    tr = res.trainable
+    losses = [loss for _, loss in res.history]
+    if len(losses) != MB_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"mini-batch losses {losses}")
+    rows = []
+    for step in range(MB_STEPS, MB_STEPS + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = tr.data(step)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        csr.linear_index(batch[0])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _, launches = _launched(lambda: tr.step_fn(tr.params, tr.opt_state,
+                                                   batch))
+        t3 = time.perf_counter()
+        rows.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+        if launches != FORWARD_LAUNCHES["gcn"]:
+            raise AssertionError(f"a mini-batch step launched {launches}")
+    data_ms, index_ms, step_ms = (float(np.median(c)) for c in zip(*rows))
+    s_sub, n_sub, e_cap = tr._mb_shape
+    print(f"train gcn mini-batch ({card}, Pubmed, {MB_BATCH_NODES} seeds, "
+          f"fanout {MB_FANOUT}, budget {tr.sampler.budget} nodes, template "
+          f"S {s_sub} n {n_sub} edge cap {e_cap}): fit {MB_STEPS} steps in "
+          f"{fit_s:.3f} s, losses {[round(x, 4) for x in losses]}; median "
+          f"ms (host clock, synchronized): sample + shard + upload "
+          f"{data_ms:.3f}, index build {index_ms:.3f}, step (its own index "
+          f"build included) {step_ms:.3f}")
+    del res, tr
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _attention_pairs(sq: int, skv: int) -> int:
@@ -854,12 +1112,12 @@ def _profile(fn, label: str, card: str) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     if not kernels:
-        print(f"lm profile {label}: wall {wall_ms:.3f} ms; device time not "
+        print(f"profile {label}: wall {wall_ms:.3f} ms; device time not "
               f"measured (the profiler saw no kernels)")
         return
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
-    print(f"lm profile {label} ({card}, under the profiler): wall "
+    print(f"profile {label} ({card}, under the profiler): wall "
           f"{wall_ms:.3f} ms, kernels {busy_ms:.3f} ms over {launches} "
           f"launches, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for e in top:
@@ -886,8 +1144,9 @@ def lm_profile(engine, batch, card: str) -> None:
                        state["caches"])
 
     with torch.inference_mode():
-        _profile(prefill, f"prefill {toks.shape[0]}x{toks.shape[1]}", card)
-        _profile(decode, f"decode step (batch {toks.shape[0]})", card)
+        _profile(prefill, f"lm prefill {toks.shape[0]}x{toks.shape[1]}",
+                 card)
+        _profile(decode, f"lm decode step (batch {toks.shape[0]})", card)
 
 
 def main() -> None:
@@ -907,9 +1166,16 @@ def main() -> None:
     print(f"setup: engine + Pubmed in {time.perf_counter() - t0:.1f} s")
     kernels = kernel_phase(engine, ds)
     launches = serve_phase(engine, ds, args, kernels)
+    train_launches = train_phase(engine, ds, card)
     for name, row in kernels.items():
         row["launches"] = launches[name]
-    del engine, datasets, ds
+        row["train_step_launches"] = train_launches.get(name, 0)
+    dev, max_shard_n = engine.device, engine.max_shard_n
+    del engine, datasets
+    gc.collect()
+    torch.cuda.empty_cache()
+    minibatch_phase(ds, dev, card, max_shard_n)
+    del ds
     gc.collect()
     torch.cuda.empty_cache()
 

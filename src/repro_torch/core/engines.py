@@ -44,19 +44,26 @@ class GraphTensors:
                    edge_dst=put(sg.edge_dst), edge_valid=put(sg.edge_valid),
                    num_nodes=sg.num_nodes, n=sg.n, S=sg.S)
 
+    # Both indexes are built outside inference mode, whatever the first
+    # caller: a serving forward runs under torch.inference_mode(), and a
+    # training step on the same graph later saves index tensors for its
+    # backward, which inference tensors cannot be.
+
     @functools.cached_property
     def gather_index(self) -> csr.GatherIndex:
         """The edges sorted by destination (CSR), built at the first
         gather and kept: models that never gather never build it."""
-        return csr.gather_index(self.edge_src, self.edge_dst,
-                                self.edge_valid, self.n)
+        with torch.inference_mode(False):
+            return csr.gather_index(self.edge_src, self.edge_dst,
+                                    self.edge_valid, self.n)
 
     @functools.cached_property
     def linear_index(self) -> csr.LinearIndex:
         """The blocks' nonzeros sorted by destination (CSR), built at the
         first linear aggregation or fused layer and kept: models that
         only gather never build it."""
-        return csr.linear_index(self.blocks)
+        with torch.inference_mode(False):
+            return csr.linear_index(self.blocks)
 
     @property
     def device(self) -> torch.device:
@@ -106,6 +113,13 @@ class GraphEngine:
         return resolve(self.backend).gather_aggregate(
             gt.edge_src, gt.edge_dst, gt.edge_valid, h, op=op,
             index=gt.gather_index)
+
+    def aggregate_indexed(self, index: csr.LinearIndex,
+                          h: torch.Tensor) -> torch.Tensor:
+        """Linear aggregation over ``index`` alone: destination row r sums
+        ``val[k] · h[col[k]]``. gat passes the graph's kept linear index
+        with a head's attention weights as ``val``."""
+        return resolve(self.backend).graph_aggregate_indexed(index, h)
 
     def spmm(self, blocks: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """Shard-grid SpMM on explicit (S, S, n, n) blocks; their linear

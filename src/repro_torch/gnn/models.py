@@ -10,8 +10,10 @@ Architectures (all multi-layer, relu between layers, logits at the end):
   sage_mean  H' = act(W [mean_N∪u(H); H])          graph-first
   sage_max   z = relu(H W_p + b_p); z̄ = max_N z;
              H' = act(W [z̄; H])                    dense-first (pool)
-  gin        H' = MLP((1+ε) H + Σ_N H)             not ported yet
-  gat        H' = act(‖_heads Σ_u α_vu z_u)        not ported yet
+  gin        H' = MLP((1+ε) H + Σ_N H)             graph-first, ε learnable
+  gat        H' = act(‖_heads Σ_u α_vu z_u)        attention-weighted shard
+                                                   SpMM (α per nonzero of
+                                                   the graph's kept index)
 
 Parameters are a plain dict ``{"layers": [per-layer dict of tensors]}``
 with the reference package's key names and shapes, so parameters cross
@@ -94,7 +96,7 @@ def init_params(spec: ZooSpec, gen: torch.Generator,
     parameters to :func:`params_from_numpy`.
     """
     layers = []
-    for din, dout in spec.layer_dims:
+    for i, (din, dout) in enumerate(spec.layer_dims):
         if spec.arch == "gcn":
             layer = {"w": _glorot(gen, (din, dout))}
         elif spec.arch == "sage_mean":
@@ -103,10 +105,20 @@ def init_params(spec: ZooSpec, gen: torch.Generator,
             layer = {"w_pool": _glorot(gen, (din, din)),
                      "b_pool": torch.zeros((din,), dtype=torch.float32),
                      "w": _glorot(gen, (2 * din, dout))}
-        else:
-            raise NotImplementedError(
-                f"{spec.arch} is not ported yet (ROADMAP.md, Queue 1: "
-                f"gin and gat)")
+        elif spec.arch == "gin":
+            layer = {"eps": torch.tensor(spec.eps_init, dtype=torch.float32),
+                     "w1": _glorot(gen, (din, dout)),
+                     "b1": torch.zeros((dout,), dtype=torch.float32),
+                     "w2": _glorot(gen, (dout, dout)),
+                     "b2": torch.zeros((dout,), dtype=torch.float32)}
+        else:  # gat: `heads` on hidden layers, 1 on the output layer
+            heads = spec.heads if i < spec.num_layers - 1 else 1
+            hd = dout // heads
+            if heads * hd != dout:
+                raise ValueError(f"gat layer {i}: {dout} !% {heads} heads")
+            layer = {"w": _glorot(gen, (din, heads * hd)),
+                     "a_src": _glorot(gen, (heads, hd)),
+                     "a_dst": _glorot(gen, (heads, hd))}
         layers.append(layer)
     return params_from_numpy({"layers": layers}, device)
 

@@ -96,6 +96,16 @@ def linear_index(blocks: torch.Tensor) -> LinearIndex:
                        hubs=hubs.reshape(-1).to(torch.int32))
 
 
+def entry_rows(index: LinearIndex) -> torch.Tensor:
+    """(nnz,) int64: the destination row of each entry of ``index``
+    (``row_ptr`` expanded; no sync with the host)."""
+    rows = index.row_ptr.numel() - 1
+    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(rows, device=counts.device), counts,
+        output_size=index.col.numel())
+
+
 def check_linear_index(kernel: str, index: LinearIndex, rows: int) -> None:
     """Raise unless ``index`` is one a kernel can walk for ``rows``
     destination rows: contiguous 1-d int32 ``row_ptr`` of ``rows + 1``

@@ -23,6 +23,18 @@ def graph_aggregate(blocks, h, *, index=None, backend=None):
     return registry.resolve(backend).graph_aggregate(blocks, h, index=index)
 
 
+def graph_aggregate_indexed(index, h, *, backend=None):
+    """Linear aggregation over a ``csr.LinearIndex`` alone: row r sums
+    ``val[k] · h[col[k]]`` (gat: ``val`` = attention weights)."""
+    return registry.resolve(backend).graph_aggregate_indexed(index, h)
+
+
+def graph_aggregate_indexed(index, h, *, backend=None):
+    """Linear aggregation over a ``csr.LinearIndex`` alone: row r sums
+    ``val[k] · h[col[k]]`` (gat: ``val`` = attention weights)."""
+    return registry.resolve(backend).graph_aggregate_indexed(index, h)
+
+
 def fused_aggregate_extract(blocks, h, w, *, activation: str = "none",
                             index=None, backend=None):
     """act((A·H)·W) with the aggregate kept on chip. ``index``: the

@@ -6,8 +6,10 @@ plain torch on the tensors' device, built once per graph by
 ``core.engines.GraphTensors``); the CUDA kernel ``csrc/shard_spmm.cu``
 then gathers each destination row's weighted source rows into registers
 and writes the row once (its header says what bounds it). The index's
-hub rows get a block each. CPU tensors take the plain version in
-``ref.py``; CUDA tensors launch the kernel or raise.
+hub rows get a block each. :func:`shard_spmm_indexed` runs the same
+kernel over an index alone, whose values need not be the blocks' (gat's
+attention weights). CPU tensors take the plain versions in ``ref.py``;
+CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -41,6 +43,32 @@ def shard_spmm(blocks: torch.Tensor, h: torch.Tensor, *,
                          f"match h {tuple(h.shape)}")
     if index is None:
         index = linear_index(blocks)
+    return _launch(index, h, s_dst)
+
+
+def shard_spmm_indexed(index: LinearIndex, h: torch.Tensor) -> torch.Tensor:
+    """The same product over ``index`` alone: destination row r sums
+    ``val[k] · h[col[k]]`` over its entries. index: a
+    :class:`~repro_torch.kernels.csr.LinearIndex` of S_dst·n rows, h
+    (S_src, n, D) float32 -> (S_dst, n, D).
+
+    gat's aggregation: the graph's kept index with its values replaced by
+    a head's attention weights, so no blocks hold the weights. CPU
+    tensors take :func:`ref.spmm_indexed`; CUDA tensors launch the
+    shard_spmm kernel or raise."""
+    if _lib.on_cpu(h, index.row_ptr, index.col, index.val, index.hubs):
+        return ref.spmm_indexed(index, h)
+    _lib.check("shard_spmm", "h", h, torch.float32, 3)
+    n = h.shape[1]
+    rows = index.row_ptr.numel() - 1
+    if n == 0 or rows % n:
+        raise ValueError(f"shard_spmm: index has {rows} rows, not a "
+                         f"multiple of h's shard size (h {tuple(h.shape)})")
+    return _launch(index, h, rows // n)
+
+
+def _launch(index: LinearIndex, h: torch.Tensor, s_dst: int) -> torch.Tensor:
+    s_src, n, d = h.shape
     csr.check_linear_index("shard_spmm", index, s_dst * n)
     out = torch.empty((s_dst, n, d), dtype=torch.float32, device=h.device)
     if out.numel():

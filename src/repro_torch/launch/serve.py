@@ -16,7 +16,7 @@ serves the full-width model with random weights)::
 GNN node classification::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode gnn \
-        --graphs pubmed --models gcn,sage_mean,sage_max
+        --graphs pubmed --models gcn,sage_mean,sage_max,gin,gat
 
 ``--device cpu`` runs the plain PyTorch versions instead (for a quick
 check on a machine without a card; use ``--smoke`` LMs and a small
@@ -184,7 +184,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     # GNN path
     ap.add_argument("--graphs", default="pubmed")
-    ap.add_argument("--models", default="gcn,sage_mean,sage_max")
+    ap.add_argument("--models", default="gcn,sage_mean,sage_max",
+                    help="comma list of zoo archs: gcn, sage_mean, "
+                         "sage_max, gin, gat")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--hidden", type=int, default=16)
     ap.add_argument("--shard-n", type=int, default=512)

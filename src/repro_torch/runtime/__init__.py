@@ -5,11 +5,16 @@
     logits = exe.forward()                          # full graph
     classes, probs = exe.predict([0, 7, 9])         # cached softmax
     print(exe.summary())
+    result = runtime.fit(spec, graph, steps=200)    # train, then serve
+    result.executable.predict([0, 7, 9])
 """
 from repro_torch.runtime.api import compile, graph_fingerprint, resolve_device
 from repro_torch.runtime.cache import GraphStore
 from repro_torch.runtime.executable import Executable
+from repro_torch.runtime.fit import (FitResult, TrainableExecutable,
+                                     masked_cross_entropy, fit)
 from repro_torch.runtime.forward import forward
 
 __all__ = ["compile", "graph_fingerprint", "resolve_device", "GraphStore",
-           "Executable", "forward"]
+           "Executable", "FitResult", "TrainableExecutable",
+           "masked_cross_entropy", "fit", "forward"]

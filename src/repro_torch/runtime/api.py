@@ -16,7 +16,6 @@ import torch
 from repro_torch.gnn.executor import plan_model
 from repro_torch.gnn.models import ZooSpec, init_params, params_from_numpy
 from repro_torch.kernels import registry
-from repro_torch.runtime import forward as _fwd
 from repro_torch.runtime.cache import GraphStore
 from repro_torch.runtime.executable import Executable
 
@@ -77,7 +76,7 @@ def compile(spec: ZooSpec, graph, *,
 
     Args:
       spec: the :class:`~repro_torch.gnn.models.ZooSpec` to compile
-        (gcn, sage_mean or sage_max).
+        (any of ``ARCHS``).
       graph: a :class:`~repro_torch.graphs.datasets.GraphData` or an
         ``(edges, num_nodes[, features])`` tuple.
       device: where the graph, parameters and forward live; None is
@@ -93,7 +92,6 @@ def compile(spec: ZooSpec, graph, *,
         fingerprint of the edge list and features).
     """
     dev = resolve_device(device)
-    _fwd.check_arch(spec.arch)
     edges, num_nodes, features = _as_graph(graph)
     be = registry.resolve(backend)
     if graph_key is None:

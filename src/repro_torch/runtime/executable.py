@@ -9,7 +9,9 @@ graph on one device and kernel backend:
   * full-graph (``forward``) and node-batch (``forward_nodes`` /
     ``predict``) entry points; the node-batch path is answered from a
     cached full-graph softmax, since one shard-grid sweep per layer
-    covers every node,
+    covers every node. ``forward`` runs under inference mode;
+    ``_forward_fn`` is the same forward with autograd, for training
+    (:mod:`repro_torch.runtime.fit`),
   * parameter serialization in the reference package's flat npz layout
     (``save_params`` / ``load_params``), so checkpoints cross between
     the two packages.
@@ -106,6 +108,15 @@ class Executable:
 
     # -- forward entry points ---------------------------------------------
 
+    def _forward_fn(self):
+        """``(params, h_grouped) -> (N, C)`` logits on this graph, plan and
+        backend, recorded by autograd: the training step's forward, which
+        runs the same kernels as :meth:`forward`."""
+        spec, gt, plans, backend = (self.spec, self.gt, self.plan.layers,
+                                    self.backend)
+        return lambda p, h: _fwd.forward(spec, p, gt, h, plans=plans,
+                                         backend=backend)
+
     @torch.inference_mode()
     def forward(self, params: dict | None = None,
                 features: np.ndarray | torch.Tensor | None = None
@@ -123,8 +134,7 @@ class Executable:
         else:
             h = self.gt.group(torch.as_tensor(features, dtype=torch.float32,
                                               device=self.device))
-        return _fwd.forward(self.spec, p, self.gt, h,
-                            plans=self.plan.layers, backend=self.backend)
+        return self._forward_fn()(p, h)
 
     def _check_node_ids(self, node_ids) -> np.ndarray:
         """Validate ids against the compiled graph: a negative id would

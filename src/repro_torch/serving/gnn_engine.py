@@ -34,7 +34,6 @@ from repro_torch import runtime
 from repro_torch.gnn.models import ZooSpec, init_params, params_from_numpy
 from repro_torch.graphs.datasets import GraphData
 from repro_torch.runtime.executable import validate_params_like
-from repro_torch.runtime.forward import check_arch
 
 
 @dataclasses.dataclass
@@ -197,7 +196,6 @@ class GNNServeEngine:
             raise KeyError(f"unknown model {req.model!r}")
         if req.graph not in self._graphs:
             raise KeyError(f"unknown graph {req.graph!r}")
-        check_arch(self._models[req.model].spec.arch)
         ids = np.asarray(req.node_ids, dtype=np.int64)
         n_nodes = self._graphs[req.graph].profile.num_nodes
         if ids.size and (ids.min() < 0 or ids.max() >= n_nodes):

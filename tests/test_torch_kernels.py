@@ -349,6 +349,99 @@ def test_cuda_shard_spmm_matches_plain(cuda, density, d):
             torch.testing.assert_close(out, plain, **TOL)
 
 
+def _inf_behind_a_zero(device):
+    """Blocks (2, 2, 4, 4) and h (2, 4, 3) where source row 5 (shard 1,
+    node 1) holds +Inf in every column and no destination takes it: its
+    column of the blocks is zero. Destination rows 0 and 4 have entries
+    elsewhere; the dense product multiplies the Inf by those zeros."""
+    r = _rng(41)
+    a = (r.random((2, 2, 4, 4)) < 0.5).astype(np.float32)
+    a[:, :, 0, 0] = 1.0
+    a[:, 1, :, 1] = 0.0
+    h = r.standard_normal((2, 4, 3)).astype(np.float32)
+    h[1, 1] = np.inf
+    return _t(a).to(device), _t(h).to(device)
+
+
+def test_plain_spmm_gives_nan_for_inf_behind_a_zero():
+    """The plain versions (dense products: 0 · Inf = NaN in every row of
+    the destination shards) and so the wrappers' CPU routes give NaN; the
+    index walk, as the kernels read, skips the zeros and stays finite.
+    The ``cuda`` pin below holds the card to the walk."""
+    a, h = _inf_behind_a_zero("cpu")
+    w = torch.ones((3, 2))
+    index = csr.linear_index(a)
+    for out in (ref.shard_spmm(a, h), t_spmm.shard_spmm(a, h, index=index),
+                ref.fused_gnn(a, h, w),
+                t_fused.fused_gnn_layer(a, h, w, index=index)):
+        assert torch.isnan(out).all()
+    for out in (ref.spmm_indexed(index, h),
+                ref.fused_gnn_indexed(index, h, w)):
+        assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_is_finite_for_inf_behind_a_zero(cuda):
+    """The stated divergence (``kernels/shard_spmm.py``,
+    ``kernels/fused_gnn.py``): the kernels read only the blocks'
+    nonzeros, so an Inf that only zeros of the blocks reach gives finite
+    rows on the card, equal to the index walk, where the plain version
+    gives NaN."""
+    a, h = _inf_behind_a_zero(cuda)
+    w = torch.ones((3, 2), device=cuda)
+    index = csr.linear_index(a)
+    assert torch.isnan(ref.shard_spmm(a, h)).all()
+    for idx in (index, None):
+        out = _counted("shard_spmm", lambda: t_spmm.shard_spmm(
+            a, h, index=idx))
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref.spmm_indexed(index, h), **TOL)
+        out = _counted("fused_gnn", lambda: t_fused.fused_gnn_layer(
+            a, h, w, index=idx))
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref.fused_gnn_indexed(index, h, w),
+                                   **TOL)
+
+
+def test_shard_spmm_indexed_on_the_cpu_walks_the_index():
+    """gat's aggregation takes the index as the truth: its values, not
+    the blocks', weigh the rows (here twice the blocks' values)."""
+    r = _rng(42)
+    a = (r.random((2, 3, 5, 5)) < 0.4).astype(np.float32)
+    h = _t(r.standard_normal((3, 5, 4), np.float32))
+    index = csr.linear_index(_t(a))
+    doubled = types.SimpleNamespace(**{**index.__dict__,
+                                       "val": index.val * 2})
+    out = t_spmm.shard_spmm_indexed(doubled, h)
+    assert out.shape == (2, 5, 4)
+    torch.testing.assert_close(out, 2 * ref.shard_spmm(_t(a), h), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 8, 16, 500])
+def test_cuda_shard_spmm_indexed_matches_plain(cuda, d):
+    """The kernel over an index whose values are not the blocks' (gat's
+    α), at gat's widths (D 8: 16 hidden / 2 heads; D 3: the output
+    layer), 16 and 500, with empty rows and a hub row; a strided h, and
+    an h whose shards do not divide the index's rows, are refused."""
+    r = _rng(43 + d)
+    n = 70
+    a = _blocks(r, (3, 3, n, n), 0.05)
+    a[1, :, 1, :40] = 1.0
+    index = csr.linear_index(_t(a).to(cuda))
+    index = csr.LinearIndex(
+        row_ptr=index.row_ptr, col=index.col, hubs=index.hubs,
+        val=torch.rand(index.val.shape, device=cuda))
+    h = _t(r.standard_normal((3, n, d), np.float32)).to(cuda)
+    out = _counted("shard_spmm", lambda: t_spmm.shard_spmm_indexed(index, h))
+    torch.testing.assert_close(out, ref.spmm_indexed(index, h), **TOL)
+    wide = _t(r.standard_normal((3, n, 2 * d), np.float32)).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_spmm.shard_spmm_indexed(index, wide[..., :d])
+    with pytest.raises(ValueError, match="multiple"):
+        t_spmm.shard_spmm_indexed(index, h[:, :40].contiguous())
+
+
 @pytest.mark.cuda
 def test_cuda_shard_spmm_reads_nothing_outside_a_bad_index(cuda):
     """An index not made by linear_index: a column past h and a last row
