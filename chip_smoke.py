@@ -5,8 +5,9 @@
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it,
 and fails (non-zero exit, no result line) without them. Device memory:
-~6.4 GB of Pubmed block grids for serving and as much again for training,
-then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
+~6.4 GB of Pubmed block grids for serving and as much again for training
+(the stream phase: as much for its engine, a transient clone per patch
+and a fresh build to compare with), then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
 KV cache and a few GB of plain-attention scratch. In order:
 
 1. device check: prints ``nvidia-smi``'s name and power limit; TF32 off;
@@ -43,6 +44,23 @@ KV cache and a few GB of plain-attention scratch. In order:
 4c. GNN train phase, mini-batch: gcn with ``MB_BATCH_NODES`` seeds and
    fanout ``MB_FANOUT`` for ``MB_STEPS`` steps; the step time and its
    host part (sample + shard + upload, and the index build) are printed;
+4d. GNN stream phase, full-scale Pubmed (its own engine, freed before
+   the LM phases): ``GNNServeEngine(streaming=True, edge_slack=0.25,
+   invalidation="targeted")`` with the five archs behind a Server (max
+   batch ``STREAM_BATCH``); ``STREAM_DELTAS`` deltas from
+   ``random_delta`` (seed 0), one request per model before each, and a
+   gcn ``StreamTrainer`` round every ``STREAM_FINETUNE_EVERY`` deltas.
+   Every ticket must complete, with no recompile, no patch rebuild and
+   no trainer rebuild; after one more (measured) delta each arch's
+   served logits must equal a fresh cuda compile of the post-delta graph
+   bitwise, be within 1e-4 of the ``reference`` backend, launch exactly
+   ``FORWARD_LAUNCHES``, and a request for that delta's affected nodes
+   must return the fresh compile's classes; a last delta that adds more
+   nodes than the template has left must compact (``rebuilt``), every
+   served executable must recompile lazily, and the bitwise check must
+   hold again. Printed: mutate time (host patch, device update), index
+   rebuild per signature, cold request and warm forward per arch, rows
+   invalidated per delta, request latency, trainer rounds, compaction;
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -61,7 +79,8 @@ KV cache and a few GB of plain-attention scratch. In order:
    ``LM_LOGIT_ATOL``; each batch's prefill is timed on both backends, and
    one prefill and one decode step are traced with ``torch.profiler``
    (kernel time, launches, idle share);
-7. summary: a ``kernels`` JSON line, then the result line
+7. summary: a ``kernels`` JSON line (each row with its launches in the
+   serve run, a train step and the stream run), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 No phase catches its own failure: any failure raises.
@@ -156,6 +175,19 @@ TRAIN_LR = 1e-2
 MB_BATCH_NODES = 1024
 MB_FANOUT = (10, 5)
 MB_STEPS = 4
+# the GNN stream phase: a live Pubmed served by every arch while
+# STREAM_DELTAS random deltas land (one request of STREAM_NODES nodes per
+# model before each) and a StreamTrainer fine-tunes gcn every
+# STREAM_FINETUNE_EVERY deltas; then one measured delta, then a delta
+# that outgrows the node padding (compaction)
+STREAM_DELTAS = 50
+STREAM_EDGE_OPS = 8
+STREAM_P_NODE = 0.1
+STREAM_NODES = 8
+STREAM_BATCH = 8
+STREAM_FINETUNE_EVERY = 10
+STREAM_TRAINER = dict(batch_nodes=32, fanout=(5, 5), steps_per_round=20,
+                      lr=1e-2, seed=0)
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -862,6 +894,301 @@ def minibatch_phase(ds, dev, card: str, max_shard_n: int) -> None:
     torch.cuda.empty_cache()
 
 
+def _synced(fn):
+    """``fn()`` and its host time in ms, the card synchronized before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _stream_fresh_check(engine, ds, label: str) -> dict:
+    """Each arch's served logits against a fresh compile of the current
+    graph on a fresh store: equal bitwise on the ``cuda`` backend, within
+    1e-4 of the ``reference`` backend; a served forward launches exactly
+    ``FORWARD_LAUNCHES``. Returns the fresh logits by arch."""
+    from repro_torch import runtime
+
+    store = runtime.GraphStore()
+    fresh_logits = {}
+    for arch in ARCHS:
+        exe = engine.executable(arch, "pubmed")
+        logits, launches = _launched(exe.forward)
+        if launches != FORWARD_LAUNCHES[arch]:
+            raise AssertionError(f"stream {label} {arch}: a forward launched "
+                                 f"{launches}, expected "
+                                 f"{FORWARD_LAUNCHES[arch]}")
+        kw = dict(device=engine.device, params=exe.params,
+                  max_shard_n=engine.max_shard_n, store=store)
+        fresh = runtime.compile(exe.spec, ds, backend="cuda", **kw).forward()
+        if fresh.shape != logits.shape or not torch.equal(logits, fresh):
+            raise AssertionError(
+                f"stream {label} {arch}: served logits {tuple(logits.shape)}"
+                f" differ from a fresh compile's {tuple(fresh.shape)}"
+                + (f" by {(logits - fresh).abs().max().item():.3e}"
+                   if fresh.shape == logits.shape else ""))
+        expect = runtime.compile(exe.spec, ds, backend="reference",
+                                 **kw).forward()
+        err = (logits - expect).abs().max().item()
+        torch.testing.assert_close(logits, expect, atol=1e-4, rtol=1e-4)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"stream {label} {arch}: non-finite logits")
+        print(f"stream {label} {arch}: served logits {tuple(logits.shape)} "
+              f"equal a fresh cuda compile bitwise; vs reference backend "
+              f"max_abs_err {err:.3e}; forward launches {launches}")
+        fresh_logits[arch] = fresh
+    del store
+    return fresh_logits
+
+
+def stream_phase(dev, card: str, max_shard_n: int) -> dict:
+    """Serve a live full-scale Pubmed while deltas land and a gcn
+    StreamTrainer fine-tunes it (see the module docstring, 4d). Returns
+    the kernel launches of the stream run."""
+    from repro_torch.gnn.models import ZooSpec, graph_signature
+    from repro_torch.graphs import GraphDelta
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.graphs.delta import affected_nodes, seed_nodes
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import latency_percentiles
+    from repro_torch.serving import Completed, SchedulerConfig, Server
+    from repro_torch.serving.gnn_engine import GNNServeEngine, NodeRequest
+    from repro_torch.stream import StreamTrainer, random_delta
+
+    t_phase = t0 = time.perf_counter()
+    ds = make_dataset("pubmed", seed=0)       # the stream mutates its own
+    prof = ds.profile
+    n_start = prof.num_nodes
+    engine = GNNServeEngine(device=dev, max_shard_n=max_shard_n,
+                            streaming=True, edge_slack=0.25,
+                            invalidation="targeted")
+    engine.register_graph("pubmed", ds)
+    for arch in ARCHS:
+        engine.register_model(arch, ZooSpec(arch, prof.feature_dim, 16,
+                                            prof.num_classes), seed=0)
+    server = Server(engine, SchedulerConfig(max_batch_size=STREAM_BATCH))
+    trainer = StreamTrainer(server, graph="pubmed", model="gcn",
+                            log=lambda line: None, **STREAM_TRAINER)
+    rng = np.random.default_rng(0)
+
+    def requests(ids_of) -> list:
+        tickets = [server.submit(NodeRequest("pubmed", ids_of(arch),
+                                             model=arch)) for arch in ARCHS]
+        server.drain()
+        outs = [t.result() for t in tickets]
+        if not all(isinstance(o, Completed) for o in outs):
+            raise AssertionError(f"stream: requests not completed: {outs}")
+        return outs
+
+    def random_ids(arch):
+        return rng.integers(0, ds.profile.num_nodes, size=STREAM_NODES)
+
+    requests(random_ids)        # compile every arch, cache its softmax
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"stream setup ({card}): Pubmed {n_start} nodes, "
+          f"{len(ARCHS)} archs compiled on mutable builds (slack 0.25) in "
+          f"{setup_s:.1f} s; {engine.cache_report()}")
+
+    # the burst: requests, a delta, a fine-tune round every few deltas
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    outcomes, reps, walls, rounds = [], [], [], []
+    t0 = time.perf_counter()
+    for m in range(STREAM_DELTAS):
+        outcomes += requests(random_ids)
+        delta = random_delta(ds, rng, edge_ops=STREAM_EDGE_OPS,
+                             p_node=STREAM_P_NODE)
+        rep, wall = _synced(lambda: server.mutate("pubmed", delta))
+        reps.append(rep)
+        walls.append(wall)
+        if (m + 1) % STREAM_FINETUNE_EVERY == 0:
+            rounds.append(trainer.round())
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    s = engine.stats
+    if s["graph_recompiles"] or s["graph_patch_rebuilds"] \
+            or trainer.stats["rebuilds"]:
+        raise AssertionError(
+            f"stream: in-template burst recompiled {s['graph_recompiles']}"
+            f", patch rebuilds {s['graph_patch_rebuilds']}, trainer "
+            f"rebuilds {trainer.stats['rebuilds']}")
+    if trainer.stats["rounds"] != STREAM_DELTAS // STREAM_FINETUNE_EVERY \
+            or trainer.stats["reloads"] != trainer.stats["rounds"]:
+        raise AssertionError(f"stream trainer stats {trainer.stats}")
+    losses = [r["loss"] for r in rounds]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"stream trainer losses {losses}")
+
+    t_measured = time.perf_counter()
+    # one more delta, measured: the index rebuild per signature, then a
+    # request for its affected nodes per arch (the cold request)
+    edges_before, num_before = ds.edges.copy(), ds.profile.num_nodes
+    delta = random_delta(ds, rng, edge_ops=STREAM_EDGE_OPS,
+                         p_node=STREAM_P_NODE)
+    rep, wall = _synced(lambda: server.mutate("pubmed", delta))
+    reps.append(rep)
+    walls.append(wall)
+    affected = {}
+    for arch in ARCHS:
+        norm, _ = graph_signature(arch)
+        seeds = seed_nodes(delta, edges_before, ds.edges, num_before, norm)
+        affected[arch] = affected_nodes(ds.edges, seeds, 1,
+                                        ds.profile.num_nodes)
+    index_ms = {}
+    for arch in ARCHS:
+        gt = engine.executable(arch, "pubmed").gt
+        sig = "/".join(map(str, graph_signature(arch)))
+        kind = "gather" if arch == "sage_max" else "linear"
+        if (sig, kind) not in index_ms:
+            index_ms[(sig, kind)] = _synced(
+                lambda: getattr(gt, f"{kind}_index"))[1]
+    cold = requests(lambda arch: affected[arch])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _lib.launches().items() if v}
+    missing = [k for k in ("shard_spmm", "fused_gnn", "dense_engine",
+                           "seg_gather") if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the stream path: "
+                             f"{missing} (launches {launches})")
+    warm = {}
+    for arch in ARCHS:
+        exe = engine.executable(arch, "pubmed")
+        warm[arch] = float(np.median(
+            [_synced(exe.forward)[1] for _ in range(3)]))
+
+    # the device update alone: each signature's copy-on-write update for
+    # the measured delta's affected pairs, replayed on its current build
+    # (CUDA events), and its parts: the four clones (CUDA events), the
+    # host gather of the pairs from the mirror and their upload (host
+    # clock, synchronized; medians of 5)
+    device_ms = {}
+    for (norm, loops), res in rep["patches"].items():
+        arch = next(a for a in ARCHS if graph_signature(a) == (norm, loops))
+        exe = engine.executable(arch, "pubmed")
+        entry = engine.store.get(
+            "pubmed", ds.edges, ds.profile.num_nodes, exe.plan.shard_n, arch,
+            device=dev, version=engine.graph_version("pubmed"), mutable=True)
+        ps, gt, (ai, aj) = entry.patch_state, entry.gt, res.pairs
+        mirrors = (ps.blocks, ps.edge_src, ps.edge_dst, ps.edge_valid)
+        gathers, uploads = [], []
+        for _ in range(5):
+            subs, ms = _synced(lambda: [np.ascontiguousarray(a[ai, aj])
+                                        for a in mirrors])
+            gathers.append(ms)
+            uploads.append(_synced(lambda: [torch.from_numpy(x).to(dev)
+                                            for x in subs])[1])
+        device_ms[f"{norm}/{loops}"] = {
+            "pairs": res.shards_patched,
+            "update_ms": _ms(lambda: ps.to_graph_tensors(prev=gt,
+                                                         pairs=res.pairs)),
+            "clone_ms": _ms(lambda: [t.clone() for t in (
+                gt.blocks, gt.edge_src, gt.edge_dst, gt.edge_valid)]),
+            "host_gather_ms": float(np.median(gathers)),
+            "upload_ms": float(np.median(uploads)),
+            "upload_mb": sum(x.nbytes for x in subs) / 1e6}
+        del subs
+
+    fresh = _stream_fresh_check(engine, ds, "after the burst")
+    for o, arch in zip(cold, ARCHS):
+        want = fresh[arch][affected[arch]].argmax(-1).cpu().numpy()
+        if not np.array_equal(o.value.classes, want):
+            raise AssertionError(f"stream {arch}: the affected nodes' served "
+                                 f"classes differ from a fresh compile's")
+    del fresh
+
+    lat = latency_percentiles(outcomes)
+    host = [r["patch_host_ms"] for r in reps]
+    dev_part = [r["patch_ms"] - r["patch_host_ms"] for r in reps]
+    rest = [r["mutate_ms"] - r["patch_ms"] for r in reps]
+    inv = [sum(x.get("rows_invalidated", 0) for x in r["executables"])
+           for r in reps]
+    cached = [sum(x.get("rows_cached", 0) for x in r["executables"])
+              for r in reps]
+    pairs = [sum(p.shards_patched for p in r["patches"].values())
+             for r in reps]
+
+    def med_max(xs):
+        return f"median {np.median(xs):.3f} max {np.max(xs):.3f}"
+
+    print(f"stream burst ({card}): {STREAM_DELTAS} deltas "
+          f"(+1 measured), {len(outcomes)}/{len(outcomes)} requests "
+          f"completed in {burst_s:.3f} s; graph {n_start} -> "
+          f"{ds.profile.num_nodes} nodes; stats {engine.stats}")
+    print(f"stream mutate ms (host clock): synchronized wall "
+          f"{med_max(walls)}; host patch of the 4 signatures' mirrors "
+          f"{med_max(host)}; rest of the store patch (device clone + "
+          f"upload as enqueued, feature regroup) {med_max(dev_part)}; "
+          f"invalidation math + update_graph {med_max(rest)}; shard pairs "
+          f"patched per delta (4 signatures) {med_max(pairs)}")
+    print("stream device update of the measured delta, per signature "
+          "(update: clone + gather + upload + write, CUDA events): "
+          + "; ".join(f"{sig} {d['pairs']} pairs: update "
+                      f"{d['update_ms']:.3f} ms, clone {d['clone_ms']:.3f}"
+                      f" ms, host gather {d['host_gather_ms']:.3f} ms, "
+                      f"upload {d['upload_mb']:.1f} MB "
+                      f"{d['upload_ms']:.3f} ms"
+                      for sig, d in device_ms.items()))
+    print("stream index rebuild at the first forward after a delta (host "
+          "clock, synchronized): " + ", ".join(
+              f"{sig} {kind} {ms:.3f} ms"
+              for (sig, kind), ms in index_ms.items()))
+    print("stream post-delta per arch: " + "; ".join(
+        f"{arch} cold request (forward + softmax, {len(affected[arch])} "
+        f"affected nodes) {o.value.engine_ms:.3f} ms, warm forward "
+        f"{warm[arch]:.3f} ms" for arch, o in zip(ARCHS, cold)))
+    print(f"stream rows invalidated per delta (5 executables): "
+          f"{med_max(inv)} of {med_max(cached)} cached; request latency "
+          f"p50 {lat[0]:.3f} ms, p95 {lat[1]:.3f} ms, p99 {lat[2]:.3f} ms")
+    print("stream trainer (gcn, batch 32, fanout (5, 5), 20 steps a "
+          "round): " + "; ".join(
+              f"round {r['round']} loss {r['loss']:.4f} acc "
+              f"{r['train_acc']:.3f} {r['round_ms']:.1f} ms (dirty "
+              f"{r['dirty_nodes']}, pool {r['seed_pool']})" for r in rounds))
+    print(f"stream launches {launches}")
+
+    # the compaction: more new nodes than the template has left
+    t_compact = time.perf_counter()
+    gt = engine.executable("gcn", "pubmed").gt
+    n0 = ds.profile.num_nodes
+    k = gt.S * gt.n - n0 + 1
+    like = rng.integers(0, n0, size=k)
+    grow = GraphDelta(add_nodes=k, add_features=ds.features[like],
+                      add_labels=ds.labels[like],
+                      add_edges=np.stack([n0 + np.arange(k), like], 1))
+    del gt
+    compiles0 = engine.stats["compile_ms_total"]
+    rep, wall = _synced(lambda: server.mutate("pubmed", grow))
+    reasons = {p.reason for p in rep["patches"].values()}
+    if not rep["rebuilt"] or reasons != {"node-capacity"} or \
+            engine.stats["graph_recompiles"] != len(ARCHS) or \
+            not all(x["recompile"] for x in rep["executables"]):
+        raise AssertionError(f"stream compaction: {rep['executables']}, "
+                             f"reasons {reasons}, stats {engine.stats}")
+    grown = requests(lambda arch: np.array([0, n0, n0 + k - 1]))
+    torch.cuda.synchronize()
+    print(f"stream compaction ({card}): +{k} nodes -> "
+          f"{ds.profile.num_nodes} (S {engine.executable('gcn', 'pubmed').gt.S}"
+          f"), mutate {wall:.3f} ms synchronized (host patch "
+          f"{rep['patch_host_ms']:.3f} ms, store patch {rep['patch_ms']:.3f} "
+          f"ms); lazy recompiles {engine.stats['compile_ms_total'] - compiles0:.3f}"
+          f" ms; first requests engine_ms "
+          + ", ".join(f"{a} {o.value.engine_ms:.3f}"
+                      for a, o in zip(ARCHS, grown)))
+    _stream_fresh_check(engine, ds, "after the compaction")
+    del engine, server, trainer, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_end = time.perf_counter()
+    print(f"stream phase wall time ({card}): {t_end - t_phase:.1f} s "
+          f"(setup {setup_s:.1f} s, burst {burst_s:.1f} s, measured delta "
+          f"+ timings + fresh check {t_compact - t_measured:.1f} s, "
+          f"compaction + fresh check + free {t_end - t_compact:.1f} s)")
+    return launches
+
+
 def _attention_pairs(sq: int, skv: int) -> int:
     """(q, k) pairs a causal mask keeps: row i sees keys 0 .. Skv - Sq + i."""
     seen = np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv)
@@ -1169,7 +1496,6 @@ def main() -> None:
     train_launches = train_phase(engine, ds, card)
     for name, row in kernels.items():
         row["launches"] = launches[name]
-        row["train_step_launches"] = train_launches.get(name, 0)
     dev, max_shard_n = engine.device, engine.max_shard_n
     del engine, datasets
     gc.collect()
@@ -1178,9 +1504,13 @@ def main() -> None:
     del ds
     gc.collect()
     torch.cuda.empty_cache()
+    stream_launches = stream_phase(dev, card, max_shard_n)
 
     attention_kernel_phase(torch.device("cuda"), kernels)
     kernels["flash_attention"]["launches"] = lm_serve_phase(card)
+    for name, row in kernels.items():       # every row, flash_attention's too
+        row["train_step_launches"] = train_launches.get(name, 0)
+        row["stream_launches"] = stream_launches.get(name, 0)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

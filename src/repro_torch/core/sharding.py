@@ -43,6 +43,11 @@ class ShardedGraph:
     num_edges: int          # true number of edges (incl. self loops if added)
     degrees: np.ndarray     # (N_padded,) in-degree used for normalization
 
+    @property
+    def occupancy(self) -> np.ndarray:
+        """(S, S) edge count per shard."""
+        return self.edge_valid.sum(axis=-1)
+
 
 def shard_graph(
     edges: np.ndarray,

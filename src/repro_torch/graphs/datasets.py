@@ -44,6 +44,10 @@ class GraphData:
     features: np.ndarray   # (N, F) float32
     labels: np.ndarray     # (N,) int32
     train_mask: np.ndarray # (N,) bool
+    # monotonic mutation generation, bumped by graphs.delta
+    # .apply_to_graph_data; folded into compile fingerprints and
+    # GraphStore keys so a stale build is never served
+    version: int = 0
 
 
 def _preferential_attachment_edges(n: int, e_target: int, rng: np.random.Generator) -> np.ndarray:

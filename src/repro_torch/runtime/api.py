@@ -33,13 +33,20 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
 
 
 def graph_fingerprint(edges: np.ndarray, num_nodes: int,
-                      features: np.ndarray | None = None) -> str:
+                      features: np.ndarray | None = None,
+                      version: int = 0) -> str:
     """Cheap content key for an unnamed graph: shape/dtype plus a strided
-    sample of the edge list and the feature matrix."""
+    sample of the edge list and the feature matrix, hex-equal to the
+    reference's. ``version`` (a GraphData's monotonic mutation counter)
+    is folded in because the strided sample alone collides for a graph
+    mutated in place: a delta that keeps the edge count and misses every
+    sampled row gives the same bytes, and a pre-delta build would be
+    served for the post-delta graph."""
     h = hashlib.sha1()
     edges = np.ascontiguousarray(edges)
     step = max(1, edges.shape[0] // 1024)
-    h.update(str((edges.shape, str(edges.dtype), num_nodes)).encode())
+    h.update(str((edges.shape, str(edges.dtype), num_nodes,
+                  int(version))).encode())
     h.update(edges[::step].tobytes())
     if features is not None:
         feats = np.ascontiguousarray(features)
@@ -71,7 +78,10 @@ def compile(spec: ZooSpec, graph, *,
             seed: int = 0,
             max_shard_n: int = 1024,
             store: GraphStore | None = None,
-            graph_key=None) -> Executable:
+            graph_key=None,
+            graph_version: int | None = None,
+            mutable_graph: bool = False,
+            edge_slack: float = 0.25) -> Executable:
     """Plan, shard and place one zoo model for one graph.
 
     Args:
@@ -90,12 +100,23 @@ def compile(spec: ZooSpec, graph, *,
         private one (nothing outlives the Executable).
       graph_key: cache key naming the graph contents (default: a
         fingerprint of the edge list and features).
+      graph_version: monotonic mutation generation of the graph; None
+        reads ``graph.version`` (0 for frozen graphs). Folded into the
+        GraphStore key and the default fingerprint, so a graph mutated
+        in place never hits a pre-delta build.
+      mutable_graph: build the GraphTensors through a
+        :class:`repro_torch.graphs.patch.PatchState` with ``edge_slack``
+        slack capacity, so streaming deltas (``GraphStore.patch`` /
+        ``Executable.update_graph``) stay within the compiled template.
     """
     dev = resolve_device(device)
     edges, num_nodes, features = _as_graph(graph)
     be = registry.resolve(backend)
+    if graph_version is None:
+        graph_version = int(getattr(graph, "version", 0))
     if graph_key is None:
-        graph_key = graph_fingerprint(edges, num_nodes, features)
+        graph_key = graph_fingerprint(edges, num_nodes, features,
+                                      version=graph_version)
     if store is None:
         store = GraphStore()
     if params is None:
@@ -105,7 +126,10 @@ def compile(spec: ZooSpec, graph, *,
 
     plan = plan_model(spec, num_nodes, int(edges.shape[0]), max_n=max_shard_n)
     entry = store.get(graph_key, edges, num_nodes, plan.shard_n, spec.arch,
-                      features=features, device=dev)
-    return Executable(spec=spec, plan=plan, backend=be, gt=entry.gt,
-                      h_grouped=entry.h_grouped, params=params,
-                      graph_key=graph_key)
+                      features=features, device=dev, version=graph_version,
+                      mutable=mutable_graph, edge_slack=edge_slack)
+    exe = Executable(spec=spec, plan=plan, backend=be, gt=entry.gt,
+                     h_grouped=entry.h_grouped, params=params,
+                     graph_key=graph_key)
+    exe.graph_version = graph_version
+    return exe

@@ -12,6 +12,10 @@ graph on one device and kernel backend:
     covers every node. ``forward`` runs under inference mode;
     ``_forward_fn`` is the same forward with autograd, for training
     (:mod:`repro_torch.runtime.fit`),
+  * streaming graph updates (``update_graph``): a delta that keeps the
+    compiled template swaps in the post-delta ``GraphTensors`` — same
+    Executable, plan and parameters, nothing recompiled — and drops
+    only the cached softmax rows it can change (``invalidate_nodes``),
   * parameter serialization in the reference package's flat npz layout
     (``save_params`` / ``load_params``), so checkpoints cross between
     the two packages.
@@ -99,12 +103,22 @@ class Executable:
         self.gt = gt
         self.params = params
         self.graph_key = graph_key
+        # monotonic version of the graph this Executable serves (set by
+        # runtime.compile, advanced by the serving engine's mutate path)
+        self.graph_version = 0
         self._h_grouped = h_grouped
         self._probs: np.ndarray | None = None
+        # per-row staleness of the cached softmax under targeted graph
+        # invalidation; None = every cached row fresh
+        self._stale: np.ndarray | None = None
 
     @property
     def device(self) -> torch.device:
         return self.gt.device
+
+    @property
+    def backend_name(self) -> str:
+        return self.backend.name
 
     # -- forward entry points ---------------------------------------------
 
@@ -162,11 +176,17 @@ class Executable:
         if self._probs is None:
             logits = self.forward().cpu().numpy().astype(np.float32)
             self._probs = _softmax(logits)
+            self._stale = None      # one full recompute clears staleness
         return self._probs
 
     def predict(self, node_ids) -> tuple[np.ndarray, np.ndarray]:
-        """(classes, probs) for a node batch from the cached softmax."""
+        """(classes, probs) for a node batch from the cached softmax. A
+        request touching a row staled by a graph mutation triggers ONE
+        full recompute (which freshens every row); requests over fresh
+        rows keep serving from the cache."""
         ids = self._check_node_ids(node_ids)
+        if not self.probs_fresh_for(ids):
+            self.invalidate()
         p = self.full_probs()[ids]
         return (np.argmax(p, axis=-1).astype(np.int32),
                 np.max(p, axis=-1).astype(np.float32))
@@ -188,17 +208,101 @@ class Executable:
     def has_cached_probs(self) -> bool:
         return self._probs is not None
 
+    @property
+    def cached_rows(self) -> int:
+        """Rows of the cached full-graph softmax (0 when none is cached)."""
+        return self._probs.shape[0] if self._probs is not None else 0
+
+    def probs_fresh_for(self, node_ids) -> bool:
+        """True iff a cached softmax exists and none of ``node_ids`` was
+        staled by a targeted graph invalidation — the batch can be
+        answered without a forward."""
+        if self._probs is None:
+            return False
+        if self._stale is None:
+            return True
+        ids = np.asarray(node_ids, dtype=np.int64)
+        return not bool(self._stale[ids].any()) if ids.size else True
+
     def invalidate(self) -> None:
         """Drop the cached full-graph probabilities (e.g. weight swap)."""
         self._probs = None
+        self._stale = None
+
+    def invalidate_nodes(self, node_ids) -> int:
+        """Targeted invalidation: mark ``node_ids`` rows of the cached
+        softmax stale instead of flushing the cache. Fresh-row requests
+        keep hitting; the first stale-row request pays one full-graph
+        recompute. Returns the number of NEWLY staled rows (0 when
+        nothing is cached)."""
+        if self._probs is None:
+            return 0
+        ids = np.asarray(node_ids, dtype=np.int64)
+        ids = np.unique(ids[(ids >= 0) & (ids < self._probs.shape[0])])
+        if ids.size == 0:
+            return 0
+        if self._stale is None:
+            self._stale = np.zeros(self._probs.shape[0], dtype=bool)
+        newly = int((~self._stale[ids]).sum())
+        self._stale[ids] = True
+        return newly
+
+    def update_graph(self, gt: GraphTensors,
+                     h_grouped: torch.Tensor | None = None, *,
+                     stale_nodes=None, refine_nodes=None) -> int:
+        """Adopt post-delta graph tensors without recompiling.
+
+        Every graph tensor must keep the compiled template (shape and
+        dtype, same S and n); a compaction that changed them raises
+        ValueError and the caller must recompile. ``gt`` is a new object
+        (``PatchState.to_graph_tensors`` never writes into the old one),
+        so the kernels' CSR indexes are built afresh from it at the next
+        forward. ``stale_nodes`` (the delta's k-hop affected set) makes
+        the invalidation targeted; None, or a node-count change, flushes
+        the whole softmax cache. ``refine_nodes`` is a placement re-score
+        hint for partitioned executables, ignored here. Returns the
+        number of cached rows invalidated."""
+        names = ("blocks", "edge_src", "edge_dst", "edge_valid")
+        for name in names:
+            o, nw = getattr(self.gt, name), getattr(gt, name)
+            if o.shape != nw.shape or o.dtype != nw.dtype:
+                raise ValueError(
+                    f"graph template break: {name} was "
+                    f"{tuple(o.shape)}/{o.dtype}, delta produced "
+                    f"{tuple(nw.shape)}/{nw.dtype} (compaction?) — "
+                    f"recompile required")
+        if (gt.S, gt.n) != (self.gt.S, self.gt.n):
+            raise ValueError(
+                f"graph template break: grid {self.gt.S}x{self.gt.n} -> "
+                f"{gt.S}x{gt.n} — recompile required")
+        if h_grouped is not None:
+            if self._h_grouped is not None and \
+                    h_grouped.shape != self._h_grouped.shape:
+                raise ValueError(
+                    f"feature template break: "
+                    f"{tuple(self._h_grouped.shape)} -> "
+                    f"{tuple(h_grouped.shape)} — recompile required")
+            self._h_grouped = h_grouped
+        grew = gt.num_nodes != self.gt.num_nodes
+        self.gt = gt
+        if stale_nodes is None or grew:
+            rows = self.cached_rows
+            self.invalidate()
+            return rows
+        return self.invalidate_nodes(stale_nodes)
+
+    def set_params(self, params: dict) -> None:
+        """Adopt ``params`` (moved to this Executable's device) and drop
+        the cached probabilities; no shape check (see update_params)."""
+        self.params = params_from_numpy(params, self.device)
+        self.invalidate()
 
     def update_params(self, params: dict) -> None:
         """Hot weight reload: adopt new parameters of the same tree and
         shapes (numpy or tensors), moved to this Executable's device. The
         cached probabilities are invalidated once, as part of the swap."""
         validate_params_like(self.params, params)
-        self.params = params_from_numpy(params, self.device)
-        self.invalidate()
+        self.set_params(params)
 
     # -- introspection / serialization ------------------------------------
 

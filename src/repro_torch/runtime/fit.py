@@ -24,10 +24,13 @@ The loop is :class:`~repro_torch.training.train_loop.TrainLoop`:
 periodic and preemption checkpoints, deterministic resume (the sampler
 is seeded by step), straggler log.
 
+:meth:`TrainableExecutable.update_sampler` swaps the sampler (and the
+node data) between rounds of the streaming fine-tune
+(:mod:`repro_torch.stream.trainer`) while the mini-batch template holds.
+
 Not ported yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): data-parallel ``mesh=`` training, ``plan="autotune"``,
-``update_sampler`` (streaming fine-tune) and the train step's
-collective accounting.
+ROADMAP.md item): data-parallel ``mesh=`` training, ``plan="autotune"``
+and the train step's collective accounting.
 """
 from __future__ import annotations
 
@@ -205,10 +208,55 @@ class TrainableExecutable:
         return (loss.detach(), logits.detach(),
                 tree_unflatten(params, grads))
 
-    def update_sampler(self, sampler, **_):
-        raise NotImplementedError(
-            "update_sampler (the streaming fine-tune) is not ported yet: "
-            "ROADMAP.md Queue 1, item 3 (streaming)")
+    def update_sampler(self, sampler: NeighborSampler, *,
+                       features: np.ndarray | None = None,
+                       labels: np.ndarray | None = None,
+                       train_mask: np.ndarray | None = None) -> None:
+        """Swap the neighbor sampler (and optionally the raw node data)
+        while keeping the mini-batch template — the streaming fine-tune
+        contract: each round re-aims sampling at the freshly mutated
+        neighborhoods and the train step keeps its shapes.
+
+        The new sampler must produce the compiled template: same
+        ``budget``, ``batch_nodes`` and ``fanout`` (pass
+        ``budget=old.budget`` when the graph grew — the default clamps at
+        num_nodes). Raises ValueError on any template change; the swap
+        is all-or-nothing."""
+        if self.sampler is None:
+            raise ValueError("update_sampler requires mini-batch mode "
+                             "(constructed with sampler=)")
+        old = self.sampler
+        if (sampler.budget != old.budget
+                or sampler.batch_nodes != old.batch_nodes
+                or tuple(sampler.fanout) != tuple(old.fanout)):
+            raise ValueError(
+                f"sampler template mismatch: compiled (budget="
+                f"{old.budget}, batch_nodes={old.batch_nodes}, fanout="
+                f"{old.fanout}), got (budget={sampler.budget}, "
+                f"batch_nodes={sampler.batch_nodes}, fanout="
+                f"{sampler.fanout}) — a changed template needs a new "
+                f"TrainableExecutable")
+        prev = (self.sampler, self._features, self._labels,
+                self._train_mask, self._mb, self._mb_shape,
+                self.minibatch_plan)
+        try:
+            self.sampler = sampler
+            if features is not None:
+                self._features = np.asarray(features, dtype=np.float32)
+            if labels is not None:
+                self._labels = np.asarray(labels, dtype=np.int64)
+            if train_mask is not None:
+                self._train_mask = np.asarray(train_mask, dtype=bool)
+            shape_before = self._mb_shape
+            self._mb = self._make_minibatch_builder()
+            if self._mb_shape != shape_before:
+                raise ValueError(
+                    f"mini-batch template changed {shape_before} -> "
+                    f"{self._mb_shape}; rebuild the TrainableExecutable")
+        except Exception:
+            (self.sampler, self._features, self._labels, self._train_mask,
+             self._mb, self._mb_shape, self.minibatch_plan) = prev
+            raise
 
     # -- TrainLoop protocol ------------------------------------------------
 

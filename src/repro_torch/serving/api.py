@@ -158,7 +158,7 @@ class Server:
         self._stopping = False                        # guarded-by: caller
         self._ids = itertools.count()   # next() is atomic under the GIL
         self._m = {"submitted": 0, "rejected": 0, "completed": 0,  # guarded-by: _cv
-                   "failed": 0, "reloads": 0,
+                   "failed": 0, "reloads": 0, "mutations": 0,
                    "queue_ms_total": 0.0, "engine_ms_total": 0.0}
 
     @property
@@ -290,11 +290,35 @@ class Server:
             self._m["reloads"] += 1
         return out
 
+    def mutate(self, graph: str, delta):
+        """Apply a :class:`~repro_torch.graphs.delta.GraphDelta` to a
+        served graph, serialized with engine steps exactly like
+        :meth:`reload`: the mutation runs under the step lock, so a
+        micro-batch already inside the engine finishes on the pre-delta
+        snapshot and every batch dispatched afterwards sees the
+        post-delta graph — queued tickets are never Failed by the swap.
+
+        Requires an engine with a ``mutate`` method (the GNN engine).
+        Returns the engine's mutation report. Exceptions propagate (an
+        invalid delta leaves the engine untouched) and do not touch
+        queued requests.
+        """
+        mutate_fn = getattr(self._engine, "mutate", None)
+        if mutate_fn is None:
+            raise TypeError(
+                f"engine {type(self._engine).__name__} does not support "
+                f"graph mutation (no .mutate)")
+        with self._step_lock:
+            out = mutate_fn(graph, delta)
+        with self._cv:
+            self._m["mutations"] += 1
+        return out
+
     @property
     def engine(self):
         """The wrapped engine. Mutating engine state directly bypasses
-        step serialization — use :meth:`reload` for anything that changes
-        what queued requests will observe."""
+        step serialization — use :meth:`reload` / :meth:`mutate` for
+        anything that changes what queued requests will observe."""
         return self._engine
 
     # -- background thread (optional) --------------------------------------

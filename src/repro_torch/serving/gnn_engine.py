@@ -13,7 +13,15 @@ caches sit under it:
     one sharded build on the card;
   * **logits cache** — each Executable computes class probabilities for
     ALL nodes once (:meth:`Executable.full_probs`); every later node id
-    on that pair is a host-side gather.
+    on that pair is a host-side gather. Invalidate with
+    :meth:`GNNServeEngine.invalidate` after a weight swap.
+
+``streaming=True`` serves a live graph: builds go through
+:class:`~repro_torch.graphs.patch.PatchState` (slack-slot edge capacity),
+and :meth:`GNNServeEngine.mutate` (driven by ``Server.mutate``) applies a
+:class:`~repro_torch.graphs.delta.GraphDelta` — patch the store, hand
+every compiled Executable the post-delta tensors without recompiling,
+and drop only the softmax rows the delta can change.
 
 Latency accounting is per request: ``Prediction.engine_ms`` is the time
 spent answering THAT request (the cold full-graph forward is charged to
@@ -23,6 +31,7 @@ the request that triggered it); compile time accrues to
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import OrderedDict
 from typing import Sequence
@@ -31,8 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch import runtime
-from repro_torch.gnn.models import ZooSpec, init_params, params_from_numpy
+from repro_torch.gnn.executor import ModelPlan
+from repro_torch.gnn.models import (ZooSpec, graph_signature, init_params,
+                                    params_from_numpy)
 from repro_torch.graphs.datasets import GraphData
+from repro_torch.graphs.delta import (affected_nodes, apply_to_graph_data,
+                                      seed_nodes, touched_nodes)
 from repro_torch.runtime.executable import validate_params_like
 
 
@@ -69,15 +82,23 @@ class GNNServeEngine:
     ``device`` is where every graph build, parameter set and forward
     lives (``cuda`` unless the caller names another); ``backend`` is
     pinned into every compiled Executable (``cuda`` kernels by default,
-    or ``reference``)."""
+    or ``reference``). ``streaming`` builds mutable graphs with
+    ``edge_slack`` slack capacity; ``invalidation`` is ``"targeted"``
+    (drop the delta's k-hop affected softmax rows) or ``"full"`` (flush
+    per mutate)."""
 
     def __init__(self, *, device: torch.device | str | None = None,
                  max_graph_entries: int = 8, max_shard_n: int = 1024,
-                 max_dense_gib: float = 8.0, backend: str | None = None):
+                 max_dense_gib: float = 8.0, backend: str | None = None,
+                 streaming: bool = False, edge_slack: float = 0.25,
+                 invalidation: str = "targeted"):
+        if invalidation not in ("targeted", "full"):
+            raise ValueError(f"invalidation must be 'targeted' or 'full', "
+                             f"got {invalidation!r}")
         self.device = runtime.resolve_device(device)
-        # registries + compiled units: mutated by register_* and
-        # reload_params, which the Server serializes with engine steps
-        # (Server.reload holds its step lock)
+        # registries + compiled units: mutated by register_*,
+        # reload_params and mutate, which the Server serializes with
+        # engine steps (Server.reload / Server.mutate hold its step lock)
         self._graphs: dict[str, GraphData] = {}
         self._models: dict[str, _ModelEntry] = {}
         self._store = runtime.GraphStore(max_entries=max_graph_entries)
@@ -85,11 +106,23 @@ class GNNServeEngine:
         self.max_shard_n = max_shard_n
         self.max_dense_gib = max_dense_gib
         self.backend = backend
+        self.streaming = streaming
+        self.edge_slack = edge_slack
+        self.invalidation = invalidation
+        self._graph_versions: dict[str, int] = {}
+        # per-graph accumulated delta-touched node ids, drained by the
+        # stream trainer (take_dirty) from its own thread without the
+        # step lock: mutate's read-union-write and the pop must not race
+        self._dirty_lock = threading.Lock()
+        self._dirty: dict[str, np.ndarray] = {}
         self._stats = {
             "logits_cache_hits": 0, "logits_cache_misses": 0,
             "requests": 0, "batches": 0, "nodes_served": 0,
             "compiles": 0, "compile_ms_total": 0.0,
             "reloads": 0, "logits_invalidations": 0,
+            "mutations": 0, "mutate_ms_total": 0.0,
+            "targeted_invalidations": 0, "full_invalidations": 0,
+            "nodes_invalidated": 0, "graph_recompiles": 0,
         }
 
     @property
@@ -100,7 +133,11 @@ class GNNServeEngine:
                 "graph_cache_hits": s["hits"],
                 "graph_cache_misses": s["misses"],
                 "graph_cache_evictions": s["evictions"],
-                "graph_built_ms_total": s["built_ms_total"]}
+                "graph_built_ms_total": s["built_ms_total"],
+                "graph_patches": s["patches"],
+                "graph_patch_rebuilds": s["patch_rebuilds"],
+                "graph_patch_drops": s["patch_drops"],
+                "graph_patch_ms_total": s["patch_ms_total"]}
 
     @property
     def store(self) -> runtime.GraphStore:
@@ -123,6 +160,9 @@ class GNNServeEngine:
                 f"dataset (make_dataset(..., scale=...)) or raise "
                 f"max_dense_gib")
         self._graphs[name] = data
+        self._graph_versions[name] = int(getattr(data, "version", 0))
+        with self._dirty_lock:
+            self._dirty.pop(name, None)
         # stale sharded tensors / executables for a replaced graph must go
         self._store.evict(name)
         for key in [k for k in self._executables if k[1] == name]:
@@ -140,6 +180,13 @@ class GNNServeEngine:
         self._models[name] = _ModelEntry(spec=spec, params=params)
         for key in [k for k in self._executables if k[0] == name]:
             del self._executables[key]
+
+    def invalidate(self, *, model: str | None = None,
+                   graph: str | None = None) -> None:
+        """Drop cached logits (e.g. after a parameter update)."""
+        for (m, g), exe in self._executables.items():
+            if (model is None or m == model) and (graph is None or g == graph):
+                exe.invalidate()
 
     def reload_params(self, model: str, params: dict) -> int:
         """Hot weight reload: swap ``model``'s parameters into every
@@ -167,6 +214,133 @@ class GNNServeEngine:
         self._stats["logits_invalidations"] += touched
         return touched
 
+    # -- streaming mutation path -------------------------------------------
+
+    def mutate(self, graph: str, delta) -> dict:
+        """Apply one :class:`~repro_torch.graphs.delta.GraphDelta` to a
+        registered graph: mutate the GraphData in place (version bump),
+        advance every store build through the incremental patcher, and
+        hand the post-delta tensors to every compiled Executable serving
+        the graph — without recompiling while the delta stays within the
+        slack-slot template.
+
+        Invalidation is **targeted** (default): only the softmax rows in
+        the delta's (num_layers-1)-out-hop affected neighborhood are
+        dropped (normalization-aware seeds from
+        :func:`~repro_torch.graphs.delta.seed_nodes`). A compaction
+        (template break), or a signature with no surviving build, drops
+        the Executable instead; the next request recompiles it, counted
+        in ``graph_recompiles``.
+
+        Drive it through :meth:`repro_torch.serving.api.Server.mutate`,
+        which serializes it with engine steps: an in-flight micro-batch
+        finishes on the pre-delta snapshot. The report's
+        ``patch_host_ms`` is the numpy patch of the store's host mirrors,
+        ``patch_ms`` the whole store patch (host patch plus the device
+        updates as enqueued) and ``patches`` each surviving signature's
+        :class:`~repro_torch.graphs.patch.PatchResult`."""
+        data = self._graphs[graph]         # KeyError for unknown graphs
+        t0 = time.perf_counter()
+        edges_before = np.array(data.edges, copy=True)
+        num_before = data.profile.num_nodes
+        apply_to_graph_data(data, delta)   # validates before first write
+        old_v = self._graph_versions.get(graph, 0)
+        new_v = int(data.version)
+        self._graph_versions[graph] = new_v
+        t_patch = time.perf_counter()
+        patched = self._store.patch(graph, delta, old_version=old_v,
+                                    new_version=new_v,
+                                    features=data.features
+                                    if delta.add_nodes else None)
+        patch_ms = (time.perf_counter() - t_patch) * 1e3
+
+        touched = touched_nodes(delta, edges_before, num_before)
+        with self._dirty_lock:
+            prev = self._dirty.get(graph)
+            self._dirty[graph] = (touched if prev is None
+                                  else np.union1d(prev, touched))
+
+        per_model = []
+        for key in [k for k in self._executables if k[1] == graph]:
+            model = key[0]
+            exe = self._executables[key]
+            spec = self._models[model].spec
+            norm, loops = graph_signature(spec.arch)
+            hit = patched.get((norm, loops, exe.plan.shard_n,
+                               str(self.device)))
+            if hit is None:
+                # no surviving build for this signature (immutable entry
+                # dropped, or evicted under LRU): recompile lazily
+                del self._executables[key]
+                self._stats["graph_recompiles"] += 1
+                per_model.append({"model": model, "recompile": True})
+                continue
+            entry, res = hit
+            targeted = (self.invalidation == "targeted"
+                        and not res.rebuilt)
+            stale = None
+            if targeted:
+                ps = entry.patch_state
+                seeds = seed_nodes(delta, edges_before, ps.edges,
+                                   num_before, norm)
+                stale = affected_nodes(ps.edges, seeds,
+                                       len(spec.layer_dims) - 1,
+                                       data.profile.num_nodes)
+            try:
+                rows = exe.cached_rows
+                n_inv = exe.update_graph(entry.gt, entry.h_grouped,
+                                         stale_nodes=stale)
+                exe.graph_version = new_v
+            except ValueError:
+                # compaction changed the template: drop + recompile lazily
+                del self._executables[key]
+                self._stats["graph_recompiles"] += 1
+                per_model.append({"model": model, "recompile": True})
+                continue
+            if targeted:
+                self._stats["targeted_invalidations"] += 1
+            else:
+                self._stats["full_invalidations"] += 1
+            self._stats["nodes_invalidated"] += n_inv
+            per_model.append({
+                "model": model, "recompile": False, "targeted": targeted,
+                "rows_invalidated": n_inv, "rows_cached": rows,
+                "affected_nodes": int(stale.size) if stale is not None
+                else data.profile.num_nodes})
+        ms = (time.perf_counter() - t0) * 1e3
+        self._stats["mutations"] += 1
+        self._stats["mutate_ms_total"] += ms
+        return {"graph": graph, "version": new_v, "ops": delta.num_ops,
+                "touched_nodes": int(touched.size),
+                "num_nodes": data.profile.num_nodes,
+                "num_edges": data.profile.num_edges,
+                "mutate_ms": ms, "patch_ms": patch_ms,
+                "patch_host_ms": sum(r.apply_ms
+                                     for _, r in patched.values()),
+                "rebuilt": any(r.rebuilt for _, r in patched.values()),
+                "patches": {k[:2]: r for k, (_, r) in patched.items()},
+                "executables": per_model}
+
+    def take_dirty(self, graph: str) -> np.ndarray:
+        """Pop the accumulated delta-touched node ids for ``graph`` (the
+        stream trainer's fine-tune seed pool); empty when clean."""
+        with self._dirty_lock:
+            return self._dirty.pop(graph, np.empty(0, dtype=np.int64))
+
+    # -- accessors (stream trainer plumbing) -------------------------------
+
+    def graph_data(self, name: str) -> GraphData:
+        return self._graphs[name]
+
+    def graph_version(self, name: str) -> int:
+        return self._graph_versions.get(name, 0)
+
+    def model_spec(self, name: str) -> ZooSpec:
+        return self._models[name].spec
+
+    def model_params(self, name: str) -> dict:
+        return self._models[name].params
+
     # -- compile path ------------------------------------------------------
 
     def executable(self, model: str, graph: str) -> runtime.Executable:
@@ -180,12 +354,18 @@ class GNNServeEngine:
                 ent.spec, self._graphs[graph], device=self.device,
                 params=ent.params, backend=self.backend,
                 max_shard_n=self.max_shard_n, store=self._store,
-                graph_key=graph)
+                graph_key=graph,
+                graph_version=self._graph_versions.get(graph, 0),
+                mutable_graph=self.streaming, edge_slack=self.edge_slack)
             self._executables[key] = exe
             self._stats["compiles"] += 1
             self._stats["compile_ms_total"] += \
                 (time.perf_counter() - t0) * 1e3
         return exe
+
+    def model_plan(self, model: str, graph: str) -> ModelPlan:
+        """The layer-execution plan a (model, graph) pair is compiled with."""
+        return self.executable(model, graph).plan
 
     # -- Engine step protocol (what the Server drives) ---------------------
 
@@ -219,7 +399,11 @@ class GNNServeEngine:
                 checked.append(err)
         id_batches = [ids for ids in checked
                       if not isinstance(ids, Exception)]
-        miss = 0 if exe.has_cached_probs or not id_batches else 1
+        # a mutation-staled row counts as the batch's one miss: it forces
+        # the same full recompute as a cold cache
+        fresh = exe.has_cached_probs and all(
+            exe.probs_fresh_for(ids) for ids in id_batches)
+        miss = 0 if fresh or not id_batches else 1
         self._stats["logits_cache_misses"] += miss
         self._stats["logits_cache_hits"] += len(id_batches) - miss
         answers = iter(exe.step(id_batches))

@@ -7,6 +7,7 @@ follow the reference engine's contract.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.gnn.models import ZooSpec as JaxSpec
 from repro.gnn.models import init_zoo
@@ -145,6 +146,59 @@ def test_reload_params_invalidates_once_and_serves_new_weights(cora):
     with pytest.raises(ValueError, match="rejected"):
         eng.reload_params("gcn", _jax_params(prof, "sage_mean"))
     assert eng.stats["reloads"] == 1           # all-or-nothing
+
+
+def test_reload_does_not_fail_inflight_cobatched_requests(cora):
+    """Requests queued before a reload, co-batched on one stream, all
+    complete (on the new weights: the reload runs before they dispatch)."""
+    prof = cora.profile
+    eng = _engine(cora)
+    eng.register_model("gcn", _spec(prof, "gcn"))
+    srv = Server(eng, SchedulerConfig(max_batch_size=8))
+    rng = np.random.default_rng(0)
+    tickets = [srv.submit(NodeRequest(
+        "cora", rng.integers(0, prof.num_nodes, 4), "gcn"))
+        for _ in range(6)]
+    assert srv.queue_depth() == 6
+    new = _jax_params(prof, "gcn", seed=7)
+    srv.reload(lambda e: e.reload_params("gcn", new))
+    srv.drain()
+    outs = [t.result() for t in tickets]
+    assert all(isinstance(o, Completed) for o in outs), outs
+    m = srv.metrics()
+    assert m["failed"] == 0 and m["reloads"] == 1 and m["batches"] == 1
+    fresh = runtime.compile(_spec(prof, "gcn"), cora, device="cpu",
+                            params=new, max_shard_n=SHARD_N)
+    for t, o in zip(tickets, outs):
+        np.testing.assert_array_equal(o.value.classes,
+                                      fresh.predict(o.value.node_ids)[0])
+
+
+def test_reload_validation_is_atomic(cora):
+    prof = cora.profile
+    eng = _engine(cora)
+    eng.register_model("gcn", _spec(prof, "gcn"))
+    srv = Server(eng)
+    t = srv.submit(NodeRequest("cora", np.arange(3), "gcn"))
+    srv.drain()
+    assert isinstance(t.result(), Completed)
+    exe = eng.executable("gcn", "cora")
+    before = {k: v.clone() for k, v in exe.params["layers"][0].items()}
+
+    wrong = JaxSpec("gcn", prof.feature_dim, 12, prof.num_classes)
+    with pytest.raises(ValueError, match="reload"):
+        srv.reload(lambda e: e.reload_params(
+            "gcn", jax.tree_util.tree_map(
+                np.asarray, init_zoo(jax.random.key(0), wrong))))
+    # nothing was touched: cache still warm, params unchanged
+    assert exe.has_cached_probs
+    assert eng.stats["reloads"] == 0
+    assert eng.stats["logits_invalidations"] == 0
+    assert all(torch.equal(exe.params["layers"][0][k], v)
+               for k, v in before.items())
+    assert srv.metrics()["reloads"] == 0
+    with pytest.raises(KeyError):
+        srv.reload(lambda e: e.reload_params("nope", {}))
 
 
 def test_engine_serve_keeps_request_order(cora):

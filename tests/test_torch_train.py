@@ -532,11 +532,16 @@ def test_unported_training_paths_raise(tiny_cora):
                    tiny_cora.profile.num_classes)
     res = runtime.fit(spec, tiny_cora, steps=1, batch_nodes=8, fanout=(2,),
                       device="cpu", **QUIET)
-    for call in (lambda: res.trainable.update_sampler(None),
-                 res.trainable.train_comm_stats,
+    for call in (res.trainable.train_comm_stats,
                  res.trainable.verify_train_comm):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # update_sampler is ported (the streaming fine-tune): it refuses a
+    # sampler of another template instead
+    with pytest.raises(ValueError, match="template mismatch"):
+        res.trainable.update_sampler(NeighborSampler(
+            tiny_cora.edges, tiny_cora.profile.num_nodes, batch_nodes=8,
+            fanout=(3,)))
 
 
 # ---------------------------------------------------------------------------
