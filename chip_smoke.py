@@ -61,6 +61,22 @@ KV cache and a few GB of plain-attention scratch. In order:
    hold again. Printed: mutate time (host patch, device update), index
    rebuild per signature, cold request and warm forward per arch, rows
    invalidated per delta, request latency, trainer rounds, compaction;
+4e. GNN tune phase, full-scale Pubmed (its own engine, freed before the
+   LM phases): ``env.pin_for_benchmarks()`` and its ``describe()``
+   printed; ``GNNServeEngine(plan="autotune", tune_budget=TUNE_BUDGET,
+   max_shard_n=TUNE_MAX_SHARD_N)`` serves the five archs behind a Server,
+   winners memoized in a temporary ``REPRO_PLAN_CACHE``. Every arch's
+   compile must be ``autotune`` with no failed candidate; its logits
+   within 1e-4 of the ``reference`` backend, bitwise equal to an analytic
+   ``cuda`` compile where both run the same program (``executed_digest``),
+   and a forward must launch what the winner's fused flags say
+   (``_plan_launches``). A second compile of each pair must measure
+   nothing, and after ``clear_tune_cache()`` each must load from disk.
+   ``runtime.fit(plan="autotune")`` trains gcn ``TUNE_FIT_STEPS`` steps:
+   the loss falls and a step launches exactly its forward's kernels.
+   Printed: each arch's measured/pruned counts, winner and analytic ms
+   and speedup; the host build per signature; the phase's wall time and
+   peak device memory;
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -80,7 +96,8 @@ KV cache and a few GB of plain-attention scratch. In order:
    one prefill and one decode step are traced with ``torch.profiler``
    (kernel time, launches, idle share);
 7. summary: a ``kernels`` JSON line (each row with its launches in the
-   serve run, a train step and the stream run), then the result line
+   serve run, a train step, the stream run and the tuned serve run),
+   then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 No phase catches its own failure: any failure raises.
@@ -90,9 +107,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -188,6 +207,13 @@ STREAM_BATCH = 8
 STREAM_FINETUNE_EVERY = 10
 STREAM_TRAINER = dict(batch_nodes=32, fanout=(5, 5), steps_per_round=20,
                       lr=1e-2, seed=0)
+# the GNN tune phase: every (model, graph) pair tunes at its first
+# request, up to TUNE_BUDGET candidate plans on the 1024-node shard grid
+# (S 20); TUNE_REQUESTS 8-node requests per model; a tuned gcn fit
+TUNE_BUDGET = 8
+TUNE_MAX_SHARD_N = 1024
+TUNE_REQUESTS = 2
+TUNE_FIT_STEPS = 5
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -1189,6 +1215,187 @@ def stream_phase(dev, card: str, max_shard_n: int) -> dict:
     return launches
 
 
+def _plan_launches(arch: str, plan) -> dict:
+    """One forward's kernel launches under ``plan``: each gcn layer runs
+    the fused kernel, or shard_spmm then dense_engine, as its fused flag
+    says; the other archs never fuse and launch ``FORWARD_LAUNCHES``."""
+    if arch != "gcn":
+        return FORWARD_LAUNCHES[arch]
+    out: dict = {}
+    for p in plan.layers:
+        for k in ("fused_gnn",) if p.fused else ("shard_spmm",
+                                                 "dense_engine"):
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
+def tune_phase(dev, card: str) -> dict:
+    """Serve the five archs on full-scale Pubmed with autotuned plans,
+    hold each to the reference and analytic compiles, check the winner
+    memo in process and on disk, and train gcn with its tuned plan (see
+    the module docstring, 4e). Returns the kernel launches of the tuned
+    serve run (tuning included)."""
+    from repro_torch import env
+
+    print(f"tune env ({card}): {json.dumps(env.pin_for_benchmarks())}")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    saved_cache = os.environ.get("REPRO_PLAN_CACHE")
+    with tempfile.TemporaryDirectory() as cache_dir:
+        os.environ["REPRO_PLAN_CACHE"] = cache_dir
+        try:
+            launches = _tune_run(dev, card, cache_dir)
+        finally:
+            if saved_cache is None:
+                os.environ.pop("REPRO_PLAN_CACHE", None)
+            else:
+                os.environ["REPRO_PLAN_CACHE"] = saved_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tune phase wall time ({card}): "
+          f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches
+
+
+def _tune_run(dev, card: str, cache_dir: str) -> dict:
+    """The tune phase inside its plan cache directory."""
+    from repro_torch import runtime
+    from repro_torch.analyze import plan_lint
+    from repro_torch.gnn.models import ZooSpec
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import latency_percentiles
+    from repro_torch.serving import Completed, SchedulerConfig, Server
+    from repro_torch.serving.gnn_engine import GNNServeEngine, NodeRequest
+
+    runtime.clear_tune_cache()
+    ds = make_dataset("pubmed", seed=0)
+    prof = ds.profile
+    engine = GNNServeEngine(device=dev, plan="autotune",
+                            tune_budget=TUNE_BUDGET,
+                            max_shard_n=TUNE_MAX_SHARD_N)
+    engine.register_graph("pubmed", ds)
+    for arch in ARCHS:
+        engine.register_model(arch, ZooSpec(arch, prof.feature_dim, 16,
+                                            prof.num_classes), seed=0)
+    server = Server(engine, SchedulerConfig(max_batch_size=4))
+    rng = np.random.default_rng(0)
+
+    # the main path: requests whose first compile per model tunes it
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    tickets = [server.submit(NodeRequest(
+        "pubmed", rng.integers(0, prof.num_nodes, size=8), model=arch))
+        for _ in range(TUNE_REQUESTS) for arch in ARCHS]
+    server.drain()
+    outcomes = [t.result() for t in tickets]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _lib.launches()
+    if not all(isinstance(o, Completed) for o in outcomes):
+        raise AssertionError(f"tune: requests not completed: {outcomes}")
+    missing = [k for k in ("shard_spmm", "fused_gnn", "dense_engine",
+                           "seg_gather") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"tune: kernels never launched: {missing}")
+    store = engine.store
+    builds = store.stats["misses"]
+    p50, _, p99 = latency_percentiles(outcomes)
+    print(f"tune serve ({card}, Pubmed {prof.num_nodes} nodes, budget "
+          f"{TUNE_BUDGET}, max_shard_n {TUNE_MAX_SHARD_N}): "
+          f"{len(outcomes)} requests in {serve_s:.3f} s (compiles with "
+          f"tuning {engine.stats['compile_ms_total']:.1f} ms), latency p50 "
+          f"{p50:.3f} ms p99 {p99:.3f} ms; {builds} graph builds, host "
+          f"build {store.stats['built_ms_total'] / builds:.1f} ms per "
+          f"signature; launches {launches}")
+
+    measured0 = runtime.tune_cache_stats()["measurements"]
+    for arch in ARCHS:
+        exe = engine.executable(arch, "pubmed")
+        rep = exe.tune_report
+        if exe.plan_source != "autotune" or rep["candidates_failed"]:
+            raise AssertionError(f"tune {arch}: {exe.plan_source}, {rep}")
+        logits, fwd = _launched(exe.forward)
+        if fwd != _plan_launches(arch, exe.plan):
+            raise AssertionError(f"tune {arch}: a forward launched {fwd}, "
+                                 f"the winner's plan says "
+                                 f"{_plan_launches(arch, exe.plan)}")
+        kw = dict(device=dev, params=exe.params,
+                  max_shard_n=TUNE_MAX_SHARD_N, store=store,
+                  graph_key="pubmed")
+        expect = runtime.compile(exe.spec, ds, backend="reference",
+                                 **kw).forward()
+        err = (logits - expect).abs().max().item()
+        torch.testing.assert_close(logits, expect, atol=1e-4, rtol=1e-4)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"tune {arch}: non-finite logits")
+        analytic = runtime.compile(exe.spec, ds, **kw)
+        same = plan_lint.executed_digest(exe.plan) == \
+            plan_lint.executed_digest(analytic.plan)
+        if same and not torch.equal(logits, analytic.forward()):
+            raise AssertionError(f"tune {arch}: the winner runs the analytic "
+                                 f"program but its logits differ")
+        again = runtime.compile(exe.spec, ds, plan="autotune",
+                                tune_budget=TUNE_BUDGET,
+                                plan_cache_dir=cache_dir, **kw)
+        if again.plan != exe.plan or \
+                runtime.tune_cache_stats()["measurements"] != measured0:
+            raise AssertionError(f"tune {arch}: a second compile measured "
+                                 f"again: {runtime.tune_cache_stats()}")
+        fused = [p.fused for p in exe.plan.layers]
+        print(f"tune {arch} ({card}): {rep['candidates_measured']} measured, "
+              f"{rep['candidates_pruned']} pruned {rep['pruned_reasons']}; "
+              f"winner {rep['winner_ms']:.4f} ms (fused {fused}, shard_n "
+              f"{exe.plan.shard_n}) vs analytic {rep['analytic_ms']:.4f} ms, "
+              f"speedup {rep['speedup']:.4f}; vs reference max_abs_err "
+              f"{err:.3e}; {'bitwise equal to' if same else 'another program than'}"
+              f" the analytic compile; forward launches {fwd}")
+
+    runtime.clear_tune_cache()       # a new process: winners from disk
+    for arch in ARCHS:
+        exe = engine.executable(arch, "pubmed")
+        back = runtime.compile(exe.spec, ds, device=dev, params=exe.params,
+                               max_shard_n=TUNE_MAX_SHARD_N, store=store,
+                               graph_key="pubmed", plan="autotune",
+                               tune_budget=TUNE_BUDGET)
+        if back.plan != exe.plan:
+            raise AssertionError(f"tune {arch}: the disk winner differs")
+    stats = runtime.tune_cache_stats()
+    if stats["disk_hits"] != len(ARCHS) or stats["measurements"]:
+        raise AssertionError(f"tune: disk reload {stats}")
+    print(f"tune memo: second compiles measured nothing; after "
+          f"clear_tune_cache() {stats}")
+
+    gcn = engine.executable("gcn", "pubmed")
+    t0 = time.perf_counter()
+    res = runtime.fit(gcn.spec, ds, steps=TUNE_FIT_STEPS, lr=TRAIN_LR,
+                      device=dev, max_shard_n=TUNE_MAX_SHARD_N,
+                      params=gcn.params, store=store, plan="autotune",
+                      tune_budget=TUNE_BUDGET, log_every=1,
+                      log=lambda line: None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    tr = res.trainable
+    losses = [loss for _, loss in res.history]
+    if res.executable.plan_source != "autotune" or \
+            res.executable.plan != gcn.plan or \
+            len(losses) != TUNE_FIT_STEPS or not losses[-1] < losses[0]:
+        raise AssertionError(f"tune fit: {res.executable.plan_source}, "
+                             f"losses {losses}")
+    batch = tr.data(0)
+    _, step = _launched(lambda: tr.step_fn(tr.params, tr.opt_state, batch))
+    if step != _plan_launches("gcn", gcn.plan):
+        raise AssertionError(f"tune fit: a step launched {step}")
+    print(f"tune fit gcn ({card}): {TUNE_FIT_STEPS} steps on the tuned "
+          f"plan in {fit_s:.3f} s (measured "
+          f"{runtime.tune_cache_stats()['measurements']} candidates), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step launches {step}")
+    del engine, server, res, tr, store, gcn
+    return launches
+
+
 def _attention_pairs(sq: int, skv: int) -> int:
     """(q, k) pairs a causal mask keeps: row i sees keys 0 .. Skv - Sq + i."""
     seen = np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv)
@@ -1505,12 +1712,14 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     stream_launches = stream_phase(dev, card, max_shard_n)
+    tune_launches = tune_phase(dev, card)
 
     attention_kernel_phase(torch.device("cuda"), kernels)
     kernels["flash_attention"]["launches"] = lm_serve_phase(card)
     for name, row in kernels.items():       # every row, flash_attention's too
         row["train_step_launches"] = train_launches.get(name, 0)
         row["stream_launches"] = stream_launches.get(name, 0)
+        row["tune_launches"] = tune_launches.get(name, 0)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

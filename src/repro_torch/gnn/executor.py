@@ -11,7 +11,10 @@ picks
 by minimizing the estimated layer time under the Table-I accounting
 (core/dataflow.py traffic simulation + core/perf_model.py stage times).
 The arithmetic is the reference package's, so ``plan_model(...).to_json()``
-equals ``repro.gnn.executor.plan_model(...).to_json()``.
+equals ``repro.gnn.executor.plan_model(...).to_json()``, and
+:func:`plan_key` is hex-equal to the reference's for the same inputs: a
+plan file written by either package's ``REPRO_PLAN_CACHE`` memo serves
+the other (an analytic plan is a pure function of its inputs).
 
 On the card (n, B) are layout, not kernel tiles: n sets the shard grid
 the graph is built with, ``fused`` picks the fused kernel, and B only
@@ -20,7 +23,10 @@ shapes the estimate — the CUDA kernels choose their own tiles.
 from __future__ import annotations
 
 import dataclasses
-import functools
+import hashlib
+import json
+import os
+import pathlib
 
 from repro_torch.core.dataflow import (Dataflow, Order, Traffic, best_order,
                                        simulate_traffic)
@@ -47,6 +53,10 @@ class LayerPlan:
     est_dense_s: float
     est_layer_s: float
     est_offchip_bytes: float
+
+    def onchip_bytes_used(self, dtype_bytes: int = _F32) -> int:
+        """Working set: src block + dst accumulators + adjacency block."""
+        return (2 * self.n * self.B + self.n * self.n) * dtype_bytes
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -132,10 +142,19 @@ def _graph_time(p: Platform, work: LayerWork, traffic: Traffic) -> float:
     return max(t_cmp, t_mem, t_edge)
 
 
-def _plan_layer(spec: ZooSpec, layer: int, num_nodes: int, num_edges: int,
-                platform: Platform, max_n: int,
-                block_candidates: tuple[int, ...]) -> LayerPlan:
-    """The (B, n, S, order, fused) candidate with the least estimate."""
+def enumerate_layer_plans(spec: ZooSpec, layer: int, num_nodes: int,
+                          num_edges: int, *,
+                          platform: Platform = GNNERATOR, max_n: int = 1024,
+                          block_candidates: tuple[int, ...] = _BLOCK_CANDIDATES,
+                          orders: tuple[Order, ...] | None = None,
+                          ) -> list[LayerPlan]:
+    """Every (B, n, S, order, fused) candidate for one layer, ranked by
+    the Table-I analytic estimate (ascending ``est_layer_s``).
+
+    :func:`plan_layer` takes rank 0; the autotuner (:mod:`repro_torch.tune`)
+    measures the top-k on the card instead of trusting the estimate.
+    ``orders`` widens the search beyond the analytically best traversal
+    (the tuner passes both)."""
     work = _layer_work(spec, layer, num_nodes, num_edges)
     d = work.d_agg
     budget = int(platform.onchip_graph_mb * 2 ** 20)
@@ -146,41 +165,123 @@ def _plan_layer(spec: ZooSpec, layer: int, num_nodes: int, num_edges: int,
     for b in cands:
         n = min(max_shard_nodes_for_budget(budget, b, _F32), max_n, num_nodes)
         s = cdiv(num_nodes, n)
-        order = best_order(s)
-        df = Dataflow(S=s, D=d, B=b, order=order)
-        traffic = simulate_traffic(df, nodes_per_shard=n,
-                                   edges_per_shard=num_edges / (s * s),
-                                   dtype_bytes=_F32)
-        tg = _graph_time(platform, work, traffic)
-        td = dense_stage_time(platform, work, b)
-        # fused: fine-grain pipeline at dimension-block granularity
-        t_fused = max(tg, td) + min(tg, td) / max(df.num_blocks, 1)
-        # two-stage: coarse overlap + the intermediate's memory round trip
-        t_mid = 2.0 * num_nodes * d * _F32 / (platform.dram_gbs * 1e9)
-        t_two = max(tg, td) + min(tg, td) / 2 + t_mid
-        for fused, t in (((True, t_fused),) if fusable else ()) + \
-                        ((False, t_two),):
-            out.append(LayerPlan(
-                layer=layer, d_agg=d, B=b, n=n, S=s, order=order,
-                fused=fused, est_graph_s=tg, est_dense_s=td,
-                est_layer_s=t, est_offchip_bytes=traffic.offchip_bytes))
+        for order in (orders if orders is not None else (best_order(s),)):
+            df = Dataflow(S=s, D=d, B=b, order=order)
+            traffic = simulate_traffic(df, nodes_per_shard=n,
+                                       edges_per_shard=num_edges / (s * s),
+                                       dtype_bytes=_F32)
+            tg = _graph_time(platform, work, traffic)
+            td = dense_stage_time(platform, work, b)
+            # fused: fine-grain pipeline at dimension-block granularity
+            t_fused = max(tg, td) + min(tg, td) / max(df.num_blocks, 1)
+            # two-stage: coarse overlap + the intermediate's memory round
+            # trip
+            t_mid = 2.0 * num_nodes * d * _F32 / (platform.dram_gbs * 1e9)
+            t_two = max(tg, td) + min(tg, td) / 2 + t_mid
+            for fused, t in (((True, t_fused),) if fusable else ()) + \
+                            ((False, t_two),):
+                out.append(LayerPlan(
+                    layer=layer, d_agg=d, B=b, n=n, S=s, order=order,
+                    fused=fused, est_graph_s=tg, est_dense_s=td,
+                    est_layer_s=t,
+                    est_offchip_bytes=traffic.offchip_bytes))
     out.sort(key=lambda p: p.est_layer_s)
-    return out[0]
+    return out
 
 
-@functools.lru_cache(maxsize=256)
+def plan_layer(spec: ZooSpec, layer: int, num_nodes: int, num_edges: int, *,
+               platform: Platform = GNNERATOR, max_n: int = 1024,
+               block_candidates: tuple[int, ...] = _BLOCK_CANDIDATES,
+               ) -> LayerPlan:
+    """The candidate with the least estimate."""
+    return enumerate_layer_plans(
+        spec, layer, num_nodes, num_edges, platform=platform, max_n=max_n,
+        block_candidates=block_candidates)[0]
+
+
+# --------------------------------------------------------------------------
+# Model planning, content-hash memoized: in-process through _PLAN_CACHE,
+# across processes through JSON files in REPRO_PLAN_CACHE (or an explicit
+# cache_dir). The key is a sha256 over exactly the inputs of the plan.
+# --------------------------------------------------------------------------
+
+_PLAN_CACHE: dict[str, ModelPlan] = {}
+_PLAN_CACHE_STATS = {"hits": 0, "misses": 0, "disk_hits": 0}
+
+
+def plan_key(spec: ZooSpec, num_nodes: int, num_edges: int, *,
+             platform: Platform, max_n: int,
+             block_candidates: tuple[int, ...],
+             scope: dict | None = None) -> str:
+    """Content hash of every input that shapes the plan.
+
+    ``scope`` folds more key material into the hash. Analytic plans are
+    a pure function of (spec, graph size, platform, knobs) and leave it
+    ``None``; a measured plan is valid only where it was timed, so the
+    autotuner's winner store (:mod:`repro_torch.tune.store`) passes its
+    scope (plan source, backend, device, torch and CUDA versions, tuner
+    version, search knobs)."""
+    payload = json.dumps({
+        "spec": dataclasses.asdict(spec),
+        "num_nodes": num_nodes, "num_edges": num_edges,
+        "platform": dataclasses.asdict(platform),
+        "max_n": max_n, "block_candidates": list(block_candidates),
+        **({"scope": scope} if scope else {}),
+    }, sort_keys=True)
+    return hashlib.sha256(payload.encode()).hexdigest()
+
+
+def plan_cache_stats() -> dict:
+    return dict(_PLAN_CACHE_STATS)
+
+
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
+    for k in _PLAN_CACHE_STATS:
+        _PLAN_CACHE_STATS[k] = 0
+
+
 def plan_model(spec: ZooSpec, num_nodes: int, num_edges: int, *,
                platform: Platform = GNNERATOR, max_n: int = 1024,
                block_candidates: tuple[int, ...] = _BLOCK_CANDIDATES,
+               cache_dir: str | os.PathLike | None = None,
+               scope: dict | None = None,
                ) -> ModelPlan:
-    """Plan every layer of a zoo model for one graph size (memoized: a
-    plan is a pure function of these arguments, and the returned plan is
-    frozen, so every caller may share it)."""
+    """Plan every layer of a zoo model for one graph size (memoized; the
+    plan is frozen, so every caller may share it).
+
+    ``cache_dir`` (default: the ``REPRO_PLAN_CACHE`` environment
+    variable, if set) also persists plans as JSON, so a fresh process
+    reuses them. ``scope`` re-keys the memo (see :func:`plan_key`).
+    """
+    key = plan_key(spec, num_nodes, num_edges, platform=platform,
+                   max_n=max_n, block_candidates=block_candidates,
+                   scope=scope)
+    cached = _PLAN_CACHE.get(key)
+    if cached is not None:
+        _PLAN_CACHE_STATS["hits"] += 1
+        return cached
+
+    if cache_dir is None:
+        cache_dir = os.environ.get("REPRO_PLAN_CACHE") or None
+    disk = pathlib.Path(cache_dir) / f"{key}.json" if cache_dir else None
+    if disk is not None and disk.exists():
+        plan = ModelPlan.from_json(json.loads(disk.read_text()))
+        _PLAN_CACHE_STATS["disk_hits"] += 1
+        _PLAN_CACHE[key] = plan
+        return plan
+
+    _PLAN_CACHE_STATS["misses"] += 1
     layers = tuple(
-        _plan_layer(spec, i, num_nodes, num_edges, platform, max_n,
-                    tuple(block_candidates))
+        plan_layer(spec, i, num_nodes, num_edges, platform=platform,
+                   max_n=max_n, block_candidates=block_candidates)
         for i in range(len(spec.layer_dims)))
-    return ModelPlan(arch=spec.arch, num_nodes=num_nodes,
+    plan = ModelPlan(arch=spec.arch, num_nodes=num_nodes,
                      num_edges=num_edges,
                      onchip_bytes=int(platform.onchip_graph_mb * 2 ** 20),
                      platform=platform.name, layers=layers)
+    _PLAN_CACHE[key] = plan
+    if disk is not None:
+        disk.parent.mkdir(parents=True, exist_ok=True)
+        disk.write_text(json.dumps(plan.to_json()) + "\n")
+    return plan

@@ -25,12 +25,21 @@ class GraphProfile:
 
 
 # Paper Table II: the evaluation set every paper-table benchmark sweeps.
-DATASETS: dict[str, GraphProfile] = {
+TABLE2_DATASETS: dict[str, GraphProfile] = {
     "cora": GraphProfile("cora", 2708, 10556, 1433, 7),
     "citeseer": GraphProfile("citeseer", 3327, 9104, 3703, 6),
     "pubmed": GraphProfile("pubmed", 19717, 88648, 500, 3),
 }
-TABLE2_DATASETS = DATASETS
+
+# Large-graph regime (§VI scaling discussion): a Reddit-scale profile
+# (232,965 posts / ~114.6M directed edges / 602 features / 41 classes),
+# kept out of TABLE2_DATASETS. The performance model reads its profile;
+# make_dataset cannot generate it yet (see _LARGE_GRAPH_EDGES).
+LARGE_DATASETS: dict[str, GraphProfile] = {
+    "reddit": GraphProfile("reddit", 232965, 114615892, 602, 41),
+}
+
+DATASETS: dict[str, GraphProfile] = {**TABLE2_DATASETS, **LARGE_DATASETS}
 
 # Above this many target edges the reference package switches to a
 # vectorized power-law sampler that this package does not carry yet.
@@ -92,7 +101,9 @@ def make_dataset(name: str, *, seed: int = 0, scale: float = 1.0) -> GraphData:
     if name not in DATASETS:
         raise KeyError(f"unknown dataset {name!r}; available: "
                        f"{sorted(DATASETS)}")
-    prof = DATASETS[name]
+    # a copy: a streaming delta grows the GraphData's profile in place
+    # (graphs.delta.apply_to_graph_data), which must not reach DATASETS
+    prof = dataclasses.replace(DATASETS[name])
     if scale != 1.0:
         prof = GraphProfile(
             f"{name}-x{scale:g}",

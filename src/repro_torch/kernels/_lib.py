@@ -10,7 +10,8 @@ import time: this module imports on machines without a compiler or card.
 
 Each launcher takes raw pointers, integers and PyTorch's current stream,
 and returns ``cudaGetLastError()``; :func:`launch` raises on a nonzero
-code and counts the launch.
+code and counts the launch. A library that cannot be built or loaded
+raises :class:`LibraryError`.
 """
 from __future__ import annotations
 
@@ -50,13 +51,18 @@ _lib: ctypes.CDLL | None = None
 _launches = dict.fromkeys(KERNELS, 0)
 
 
+class LibraryError(RuntimeError):
+    """The kernel library could not be built or loaded: a fault of the
+    installation, not of any one call."""
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+    raise LibraryError("nvcc not found: the CUDA kernels are built from "
                        "source at first use and need the CUDA toolkit")
 
 
@@ -92,13 +98,13 @@ def build() -> pathlib.Path:
             if proc.returncode != 0:
                 failed.append(src)
         if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(logs))
+            raise LibraryError(f"nvcc failed for {failed}:\n" + "".join(logs))
         tmp_so = pathlib.Path(tmp) / "lib.so"
         link = subprocess.run(
             [nvcc, "-shared", *map(str, objs), "-o", str(tmp_so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+            raise LibraryError(f"nvcc link failed:\n{link.stdout}")
         so.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp_so, so)
     return so
@@ -119,7 +125,11 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            try:
+                handle = ctypes.CDLL(str(build()))
+            except OSError as err:
+                raise LibraryError(f"cannot load the kernel library: "
+                                   f"{err}") from err
             for name, kinds in KERNELS.items():
                 fn = getattr(handle, name + "_launch")
                 fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]

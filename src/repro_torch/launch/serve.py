@@ -18,6 +18,10 @@ GNN node classification::
     PYTHONPATH=src python -m repro_torch.launch.serve --mode gnn \
         --graphs pubmed --models gcn,sage_mean,sage_max,gin,gat
 
+``--plan autotune`` compiles each (model, graph) pair with the plan the
+autotuner measured fastest on the device (``--tune-budget`` candidates
+at most; winners memoized in ``REPRO_PLAN_CACHE`` when it is set).
+
 ``--device cpu`` runs the plain PyTorch versions instead (for a quick
 check on a machine without a card; use ``--smoke`` LMs and a small
 ``--scale``).
@@ -66,8 +70,12 @@ def build_engine(args) -> tuple[GNNServeEngine, dict]:
     """Engine with every (graph, model) pair registered as ``model@graph``."""
     graphs = [g.strip() for g in args.graphs.split(",") if g.strip()]
     models = [m.strip() for m in args.models.split(",") if m.strip()]
+    if args.plan == "autotune":
+        print(f"plan source: autotune (budget {args.tune_budget} candidates "
+              f"per (model, graph); winners memoized via REPRO_PLAN_CACHE)")
     engine = GNNServeEngine(device=args.device, max_shard_n=args.shard_n,
-                            backend=args.backend)
+                            backend=args.backend, plan=args.plan,
+                            tune_budget=args.tune_budget)
     datasets = {}
     for g in graphs:
         est_nodes = int(DATASETS[g].num_nodes * args.scale)
@@ -189,6 +197,14 @@ def parser() -> argparse.ArgumentParser:
                          "sage_max, gin, gat")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--hidden", type=int, default=16)
+    ap.add_argument("--plan", choices=["analytic", "autotune"],
+                    default="analytic",
+                    help="layer-plan source: Table-I cost model, or "
+                         "measured winners from the repro_torch.tune "
+                         "autotuner")
+    ap.add_argument("--tune-budget", type=int, default=8,
+                    help="--plan autotune: max candidate plans measured "
+                         "per (model, graph)")
     ap.add_argument("--shard-n", type=int, default=512)
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--nodes-per-req", type=int, default=8)

@@ -18,10 +18,11 @@ On the CPU (the plain PyTorch versions; keep ``--scale`` small)::
 
 ``--ckpt-dir`` makes the run resumable: interrupt it, rerun the same
 command, and it continues from the latest checkpoint to ``--steps``.
-The reference's ``--mesh`` (with ``--model-parallel``, ``--partition``,
-``--hub-cache``, ``--verify-comm``) and ``--plan autotune`` (with
-``--tune-budget``) are accepted and raise ``NotImplementedError``: they
-are ROADMAP.md Queue 1 items 5 and 4.
+``--plan autotune`` trains with the plan the autotuner measured fastest
+on the device (``--tune-budget`` candidates at most). The reference's
+``--mesh`` (with ``--model-parallel``, ``--partition``, ``--hub-cache``,
+``--verify-comm``) is accepted and raises ``NotImplementedError``: it is
+ROADMAP.md Queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default=None, choices=["cuda", "reference"])
     ap.add_argument("--plan", choices=["analytic", "autotune"],
                     default="analytic",
-                    help="layer-plan source: the Table-I cost model "
-                         "(autotune is not ported)")
+                    help="layer-plan source: the Table-I cost model, or "
+                         "the plan the autotuner measured fastest")
     ap.add_argument("--tune-budget", type=int, default=8,
                     help="--plan autotune: max candidate plans measured")
     ap.add_argument("--shard-n", type=int, default=512)
@@ -107,7 +108,8 @@ def main(argv=None) -> None:
         else 0,
         batch_nodes=args.batch_nodes, fanout=fanout, device=dev,
         backend=args.backend, max_shard_n=args.shard_n, plan=args.plan,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        tune_budget=args.tune_budget, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
         log_every=args.log_every)
     dt = time.time() - t0
 

@@ -1,7 +1,9 @@
 """``runtime.compile(spec, graph) -> Executable`` — the one public entry.
 
 The compile step is where the GNNerator Controller's planning lives: the
-Table-I cost model picks (B, n, S, order, fused) per layer, the graph is
+Table-I cost model picks (B, n, S, order, fused) per layer — or the
+autotuner measures its top-k candidates on the device and picks the
+fastest (``plan="autotune"``, :mod:`repro_torch.tune`) — the graph is
 sharded + normalization-baked once per signature (shared through a
 GraphStore), and parameters are initialized (or adopted) on the device,
 pinned with one kernel backend.
@@ -13,6 +15,7 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.core.perf_model import GNNERATOR, Platform
 from repro_torch.gnn.executor import plan_model
 from repro_torch.gnn.models import ZooSpec, init_params, params_from_numpy
 from repro_torch.kernels import registry
@@ -73,15 +76,24 @@ def _as_graph(graph):
 
 def compile(spec: ZooSpec, graph, *,
             device: torch.device | str | None = None,
+            platform: Platform = GNNERATOR,
             backend: str | registry.KernelBackend | None = None,
             params: dict | None = None,
             seed: int = 0,
             max_shard_n: int = 1024,
+            block_candidates: tuple[int, ...] | None = None,
             store: GraphStore | None = None,
             graph_key=None,
             graph_version: int | None = None,
             mutable_graph: bool = False,
-            edge_slack: float = 0.25) -> Executable:
+            edge_slack: float = 0.25,
+            plan: str = "analytic",
+            tune_budget: int = 16,
+            tune_seed: int = 0,
+            tune_reps: int = 3,
+            tune_warmup: int = 1,
+            tune_timeout_s: float | None = 30.0,
+            plan_cache_dir=None) -> Executable:
     """Plan, shard and place one zoo model for one graph.
 
     Args:
@@ -91,11 +103,14 @@ def compile(spec: ZooSpec, graph, *,
         ``(edges, num_nodes[, features])`` tuple.
       device: where the graph, parameters and forward live; None is
         ``cuda`` (and raises without a card).
+      platform: the performance-model platform the planner optimizes for.
       backend: ``"cuda"`` (default: the hand-written kernels) or
         ``"reference"`` (the plain PyTorch versions), or a backend object.
       params: adopt a parameter tree (numpy arrays or tensors); None
         draws one from ``seed`` with a ``torch.Generator``.
       max_shard_n: planner cap on nodes per shard.
+      block_candidates: the planner's feature-block candidates (default:
+        the planner's own).
       store: GraphStore for the signature-keyed graph build; None uses a
         private one (nothing outlives the Executable).
       graph_key: cache key naming the graph contents (default: a
@@ -108,7 +123,22 @@ def compile(spec: ZooSpec, graph, *,
         :class:`repro_torch.graphs.patch.PatchState` with ``edge_slack``
         slack capacity, so streaming deltas (``GraphStore.patch`` /
         ``Executable.update_graph``) stay within the compiled template.
+      plan: plan source — ``"analytic"`` trusts the Table-I cost model;
+        ``"autotune"`` measures the analytic top-k candidates with the
+        resolved backend on ``device``
+        (:func:`repro_torch.tune.autotune_plan`) and compiles the
+        measured winner, memoized under a key that names the backend
+        and the device.
+      tune_budget / tune_seed / tune_reps / tune_warmup / tune_timeout_s:
+        autotuner knobs (max candidates measured; memo-key seed;
+        median-of-k reps; warm-up runs; per-candidate timeout). Ignored
+        for ``plan="analytic"``.
+      plan_cache_dir: persist/load plans (and autotuned winners) as JSON
+        (default: the ``REPRO_PLAN_CACHE`` environment variable).
     """
+    if plan not in ("analytic", "autotune"):
+        raise ValueError(f"plan must be 'analytic' or 'autotune', "
+                         f"got {plan!r}")
     dev = resolve_device(device)
     edges, num_nodes, features = _as_graph(graph)
     be = registry.resolve(backend)
@@ -124,12 +154,30 @@ def compile(spec: ZooSpec, graph, *,
     else:
         params = params_from_numpy(params, dev)
 
-    plan = plan_model(spec, num_nodes, int(edges.shape[0]), max_n=max_shard_n)
-    entry = store.get(graph_key, edges, num_nodes, plan.shard_n, spec.arch,
+    plan_kw = dict(platform=platform, max_n=max_shard_n)
+    if block_candidates is not None:
+        plan_kw["block_candidates"] = tuple(block_candidates)
+    plan_source, tune_report = "analytic", None
+    if plan == "autotune":
+        from repro_torch import tune
+        rec = tune.autotune_plan(
+            spec, edges, num_nodes, backend=be, device=dev,
+            features=features, params=params, budget=tune_budget,
+            seed=tune_seed, reps=tune_reps, warmup=tune_warmup,
+            timeout_s=tune_timeout_s, cache_dir=plan_cache_dir,
+            store=store, graph_key=graph_key, graph_version=graph_version,
+            **plan_kw)
+        mplan, plan_source, tune_report = rec.plan, rec.plan_source, \
+            rec.report()
+    else:
+        mplan = plan_model(spec, num_nodes, int(edges.shape[0]),
+                           cache_dir=plan_cache_dir, **plan_kw)
+    entry = store.get(graph_key, edges, num_nodes, mplan.shard_n, spec.arch,
                       features=features, device=dev, version=graph_version,
                       mutable=mutable_graph, edge_slack=edge_slack)
-    exe = Executable(spec=spec, plan=plan, backend=be, gt=entry.gt,
+    exe = Executable(spec=spec, plan=mplan, backend=be, gt=entry.gt,
                      h_grouped=entry.h_grouped, params=params,
-                     graph_key=graph_key)
+                     graph_key=graph_key, plan_source=plan_source,
+                     tune_report=tune_report)
     exe.graph_version = graph_version
     return exe

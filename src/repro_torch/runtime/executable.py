@@ -16,12 +16,14 @@ graph on one device and kernel backend:
     compiled template swaps in the post-delta ``GraphTensors`` — same
     Executable, plan and parameters, nothing recompiled — and drops
     only the cached softmax rows it can change (``invalidate_nodes``),
-  * parameter serialization in the reference package's flat npz layout
-    (``save_params`` / ``load_params``), so checkpoints cross between
-    the two packages.
+  * plan and parameter serialization (``save_plan``; ``save_params`` /
+    ``load_params`` in the reference package's flat npz layout, so
+    checkpoints cross between the two packages).
 """
 from __future__ import annotations
 
+import json
+import pathlib
 import time
 
 import numpy as np
@@ -96,13 +98,20 @@ class Executable:
     def __init__(self, *, spec: ZooSpec, plan: ModelPlan,
                  backend: KernelBackend, gt: GraphTensors,
                  h_grouped: torch.Tensor | None, params: dict,
-                 graph_key=None):
+                 graph_key=None, plan_source: str = "analytic",
+                 tune_report: dict | None = None):
         self.spec = spec
         self.plan = plan
         self.backend = backend
         self.gt = gt
         self.params = params
         self.graph_key = graph_key
+        # where the plan came from ("analytic" | "autotune" |
+        # "analytic_fallback") and, for tuned plans, the measurement
+        # evidence (winner vs analytic ms, candidates tried), which
+        # summary() shows
+        self.plan_source = plan_source
+        self.tune_report = tune_report
         # monotonic version of the graph this Executable serves (set by
         # runtime.compile, advanced by the serving engine's mutate path)
         self.graph_version = 0
@@ -309,10 +318,34 @@ class Executable:
     def summary(self) -> str:
         n_params = sum(int(v.size)
                        for v in _flatten_params(self.params).values())
-        return (f"Executable[{self.spec.arch}] backend={self.backend.name} "
-                f"device={self.device} params={n_params} "
-                f"grid={self.gt.S}x{self.gt.S} n={self.gt.n}\n"
-                + self.plan.summary())
+        lines = [f"Executable[{self.spec.arch}] backend={self.backend.name} "
+                 f"device={self.device} plan={self.plan_source} "
+                 f"params={n_params} grid={self.gt.S}x{self.gt.S} "
+                 f"n={self.gt.n}"]
+        r = self.tune_report
+        if r is not None:
+            counts = (f"{r['candidates_measured']} candidates, "
+                      f"{r['candidates_failed']} failed, "
+                      f"{r.get('candidates_pruned', 0)} pruned)")
+            if r.get("winner_ms") is not None:
+                vs = (f"vs analytic {r['analytic_ms']:.3f} ms "
+                      f"({r['speedup']:.2f}x, " if r.get("analytic_ms")
+                      else "(analytic unmeasured, ")
+                lines.append(f"  autotune: winner {r['winner_ms']:.3f} ms "
+                             f"{vs}{counts}")
+            else:
+                lines.append(f"  autotune: analytic fallback ({counts}")
+        lines.append(self.plan.summary())
+        return "\n".join(lines)
+
+    def plan_json(self) -> dict:
+        return self.plan.to_json()
+
+    def save_plan(self, path) -> None:
+        """The plan as JSON (``ModelPlan.from_json`` reads it back, in
+        either package)."""
+        pathlib.Path(path).write_text(
+            json.dumps(self.plan_json(), indent=2) + "\n")
 
     def save_params(self, path) -> None:
         """Flat npz, keys like ``layers/0/w`` — the reference layout."""

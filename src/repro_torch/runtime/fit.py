@@ -28,9 +28,13 @@ is seeded by step), straggler log.
 node data) between rounds of the streaming fine-tune
 (:mod:`repro_torch.stream.trainer`) while the mini-batch template holds.
 
+``plan="autotune"`` trains with the plan the autotuner measured fastest
+on the device (:mod:`repro_torch.tune`), so training runs the tuned
+plan's kernels.
+
 Not ported yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): data-parallel ``mesh=`` training, ``plan="autotune"``
-and the train step's collective accounting.
+ROADMAP.md item): data-parallel ``mesh=`` training and the train step's
+collective accounting.
 """
 from __future__ import annotations
 
@@ -364,8 +368,8 @@ def fit(spec: ZooSpec, graph, labels=None, *,
         batch_nodes: int = 0, fanout: Sequence[int] = (10, 5),
         device: torch.device | str | None = None, backend=None,
         mesh=None, max_shard_n: int = 1024, plan: str = "analytic",
-        params: dict | None = None, seed: int = 0, store=None,
-        ckpt_manager=None, ckpt_dir=None, ckpt_every: int = 50,
+        tune_budget: int = 16, params: dict | None = None, seed: int = 0,
+        store=None, ckpt_manager=None, ckpt_dir=None, ckpt_every: int = 50,
         log_every: int = 25, log: Callable[[str], None] = print
         ) -> FitResult:
     """Compile one zoo model and train it end to end on one device.
@@ -383,7 +387,7 @@ def fit(spec: ZooSpec, graph, labels=None, *,
         of this many seed nodes with per-layer ``fanout``.
       device / backend: as :func:`runtime.compile` (``cuda`` and the
         hand-written kernels by default).
-      mesh, plan="autotune": not ported yet; they raise.
+      mesh: not ported yet; it raises.
       ckpt_manager / ckpt_dir: resume + periodic checkpointing through
         :class:`~repro_torch.checkpoint.manager.CheckpointManager`.
 
@@ -394,12 +398,6 @@ def fit(spec: ZooSpec, graph, labels=None, *,
     if mesh is not None:
         raise NotImplementedError(
             f"data-parallel (mesh) training is not ported yet: {_MESH}")
-    if plan == "autotune":
-        raise NotImplementedError(
-            "plan='autotune' is not ported yet: ROADMAP.md Queue 1, item 4 "
-            "(tune)")
-    if plan != "analytic":
-        raise ValueError(f"unknown plan {plan!r}; choose 'analytic'")
     if hasattr(graph, "profile"):
         if labels is None:
             labels = graph.labels
@@ -416,7 +414,7 @@ def fit(spec: ZooSpec, graph, labels=None, *,
 
     exe = api.compile(spec, graph, device=device, backend=backend,
                       max_shard_n=max_shard_n, params=params, seed=seed,
-                      store=store)
+                      store=store, plan=plan, tune_budget=tune_budget)
     opt_cfg = opt or AdamWConfig(
         lr=lr, weight_decay=weight_decay, grad_clip=grad_clip,
         schedule=schedule, warmup_steps=warmup_steps, total_steps=steps)

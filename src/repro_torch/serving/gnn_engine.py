@@ -82,16 +82,23 @@ class GNNServeEngine:
     ``device`` is where every graph build, parameter set and forward
     lives (``cuda`` unless the caller names another); ``backend`` is
     pinned into every compiled Executable (``cuda`` kernels by default,
-    or ``reference``). ``streaming`` builds mutable graphs with
-    ``edge_slack`` slack capacity; ``invalidation`` is ``"targeted"``
-    (drop the delta's k-hop affected softmax rows) or ``"full"`` (flush
-    per mutate)."""
+    or ``reference``). ``plan`` is every compile's plan source:
+    ``"analytic"`` or ``"autotune"`` (each (model, graph) pair measures
+    up to ``tune_budget`` candidate plans on ``device`` at its first
+    compile; winners are memoized through ``REPRO_PLAN_CACHE``).
+    ``streaming`` builds mutable graphs with ``edge_slack`` slack
+    capacity; ``invalidation`` is ``"targeted"`` (drop the delta's k-hop
+    affected softmax rows) or ``"full"`` (flush per mutate)."""
 
     def __init__(self, *, device: torch.device | str | None = None,
                  max_graph_entries: int = 8, max_shard_n: int = 1024,
                  max_dense_gib: float = 8.0, backend: str | None = None,
+                 plan: str = "analytic", tune_budget: int = 16,
                  streaming: bool = False, edge_slack: float = 0.25,
                  invalidation: str = "targeted"):
+        if plan not in ("analytic", "autotune"):
+            raise ValueError(f"plan must be 'analytic' or 'autotune', "
+                             f"got {plan!r}")
         if invalidation not in ("targeted", "full"):
             raise ValueError(f"invalidation must be 'targeted' or 'full', "
                              f"got {invalidation!r}")
@@ -106,6 +113,8 @@ class GNNServeEngine:
         self.max_shard_n = max_shard_n
         self.max_dense_gib = max_dense_gib
         self.backend = backend
+        self.plan_source = plan
+        self.tune_budget = tune_budget
         self.streaming = streaming
         self.edge_slack = edge_slack
         self.invalidation = invalidation
@@ -354,7 +363,8 @@ class GNNServeEngine:
                 ent.spec, self._graphs[graph], device=self.device,
                 params=ent.params, backend=self.backend,
                 max_shard_n=self.max_shard_n, store=self._store,
-                graph_key=graph,
+                graph_key=graph, plan=self.plan_source,
+                tune_budget=self.tune_budget,
                 graph_version=self._graph_versions.get(graph, 0),
                 mutable_graph=self.streaming, edge_slack=self.edge_slack)
             self._executables[key] = exe

@@ -88,17 +88,19 @@ def test_deeper_model_matches_reference(graph):
 @pytest.mark.parametrize("arch", ["gin", "gat"])
 def test_unported_archs_raise(graph, arch):
     """gin and gat were the unported archs; both run now (their forwards
-    are held to the reference here and in tests/test_torch_gin_gat.py).
-    What the port still lacks for them, as for every arch, raises
-    NotImplementedError naming its ROADMAP item: data-parallel (mesh)
-    training and the autotuned plan."""
+    are held to the reference here and in tests/test_torch_gin_gat.py),
+    and so does training them with an autotuned plan. What the port
+    still lacks for them, as for every arch, raises NotImplementedError
+    naming its ROADMAP item: data-parallel (mesh) training."""
     from repro_torch import runtime
 
     out, exp, _ = _run_both(graph, arch)
     np.testing.assert_allclose(out.numpy(), exp, **TOL)
     prof = graph.profile
     spec = ZooSpec(arch, prof.feature_dim, 16, prof.num_classes)
-    for kw in ({"mesh": (2, 1)}, {"plan": "autotune"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runtime.fit(spec, graph, steps=1, device="cpu",
-                        log=lambda s: None, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runtime.fit(spec, graph, steps=1, device="cpu", mesh=(2, 1),
+                    log=lambda s: None)
+    res = runtime.fit(spec, graph, steps=1, device="cpu", plan="autotune",
+                      tune_budget=2, log=lambda s: None)
+    assert res.executable.plan_source == "autotune"

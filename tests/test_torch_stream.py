@@ -183,6 +183,23 @@ def test_delta_errors_match_the_reference():
     assert ds.version == 0
 
 
+def test_delta_on_a_full_scale_dataset_leaves_the_profile_table():
+    """A full-scale GraphData owns its profile: a delta that adds nodes
+    grows that graph's profile, never the module's table, so a later
+    ``make_dataset`` of the same name is the published graph again."""
+    from repro_torch.graphs.datasets import DATASETS, make_dataset
+
+    ds = make_dataset("cora", seed=0)
+    n0, e0 = DATASETS["cora"].num_nodes, DATASETS["cora"].num_edges
+    apply_to_graph_data(ds, GraphDelta(
+        add_nodes=2, add_features=ds.features[:2], add_labels=ds.labels[:2],
+        add_edges=[[n0, 0], [n0 + 1, 1]]))
+    assert ds.profile.num_nodes == n0 + 2
+    assert (DATASETS["cora"].num_nodes, DATASETS["cora"].num_edges) == \
+        (n0, e0)
+    assert make_dataset("cora", seed=0).profile.num_nodes == n0
+
+
 _PATCH_FIELDS = ("edges", "num_nodes", "S", "e_cap", "blocks", "edge_src",
                  "edge_dst", "edge_valid", "counts", "deg_in", "deg_out")
 
