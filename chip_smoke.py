@@ -77,6 +77,30 @@ KV cache and a few GB of plain-attention scratch. In order:
    Printed: each arch's measured/pruned counts, winner and analytic ms
    and speedup; the host build per signature; the phase's wall time and
    peak device memory;
+4f. GNN mesh phase, full-scale Pubmed (its own engines, freed before the
+   LM phases): the sharded program (``dist/gnn.py``) on a ``LocalMesh``
+   of data 4 x model 2 ranks on the one card (``make_mesh_for(8,
+   model_parallel=2)``; S 39 padded to 40). The main path: 16 requests
+   over gcn, sage_mean and gin through a Server on
+   ``GNNServeEngine(mesh=...)``, each answer equal to a single-device
+   engine's. For each arch, contiguous and fennel (hub cache 256): logits
+   within 1e-4 of the single-device cuda Executable and of the sharded
+   ``reference`` backend, ``verify_comm()``, the counted wire bytes equal
+   ``MESH_ALLGATHER`` / ``MESH_ALLREDUCE`` exactly, a forward launches
+   ``MESH_LAUNCHES`` exactly; sage_max and gat raise
+   ``NotImplementedError``. shard_spmm over data group 0's local grid
+   with its kept index at D 250 and dense_engine at (5120, 250) @ (250,
+   16) against their plain versions, timed beside their bounds and a
+   library call (``mesh_local`` on the kernels line). gcn trains
+   ``MESH_TRAIN_STEPS`` steps on the mesh: step-0 gradients within
+   ``GRAD_REL`` of single-device, ``verify_train_comm()``. A mutable
+   fennel engine and a mutable contiguous one take ``MESH_DELTAS`` deltas
+   each through ``Server.mutate`` in template; fennel's logits within
+   1e-4 of a fresh single-device compile, contiguous's bitwise equal to a
+   fresh sharded compile. Printed: the sharded forward's median ms, the
+   partition's host ms, mutate times, the phase's wall time and peak
+   device memory. Eight ranks run their kernels in turn on the one card:
+   the times say nothing about scaling;
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -96,7 +120,8 @@ KV cache and a few GB of plain-attention scratch. In order:
    one prefill and one decode step are traced with ``torch.profiler``
    (kernel time, launches, idle share);
 7. summary: a ``kernels`` JSON line (each row with its launches in the
-   serve run, a train step, the stream run and the tuned serve run),
+   serve run, a train step, the stream run, the tuned serve run and the
+   mesh serve run),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -214,6 +239,34 @@ TUNE_BUDGET = 8
 TUNE_MAX_SHARD_N = 1024
 TUNE_REQUESTS = 2
 TUNE_FIT_STEPS = 5
+# the GNN mesh phase: the sharded program on a LocalMesh of data 4 x
+# model 2 ranks on the one card (S 39 padded to S_pad 40, 10 shard rows
+# per data group), full-scale Pubmed, hidden 16, 2 layers
+MESH_RANKS = 8
+MESH_MODEL = 2
+MESH_HUB_CACHE = 256
+MESH_ARCHS = ("gcn", "sage_mean", "gin")
+# kernel launches of one sharded forward: one shard_spmm per rank and
+# layer (8 x 2); dense_engine per rank and layer gcn 1, sage_mean 2 (its
+# two row-parallel products), gin 2 (its MLP); nothing else
+MESH_LAUNCHES = {
+    "gcn": {"shard_spmm": 16, "dense_engine": 16},
+    "sage_mean": {"shard_spmm": 16, "dense_engine": 32},
+    "gin": {"shard_spmm": 16, "dense_engine": 32},
+}
+# counted wire bytes of one sharded forward, from the reference's
+# formulas (dist/gnn.py _layer_allgather_bytes, the psum's 2(g-1)/g B):
+# contiguous all-gathers 3 x 40 x 512 x (250 + 8) x 4; fennel 3 x 4 x
+# (hub_cap + halo_cap) x 8 x 4 at layer 1 (gcn/sage_mean caps 67 + 4079,
+# gin 69 + 4082); the psums 5120 x (16 + 3) x 4 per product
+MESH_ALLGATHER = {("contiguous", a): 63_406_080 for a in MESH_ARCHS}
+MESH_ALLGATHER.update({("fennel", "gcn"): 1_592_064,
+                       ("fennel", "sage_mean"): 1_592_064,
+                       ("fennel", "gin"): 1_593_984})
+MESH_ALLREDUCE = {"gcn": 389_120, "sage_mean": 389_120, "gin": 778_240}
+MESH_REQUESTS = 16
+MESH_TRAIN_STEPS = 5
+MESH_DELTAS = 5
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -1396,6 +1449,337 @@ def _tune_run(dev, card: str, cache_dir: str) -> dict:
     return launches
 
 
+def _mesh_kernel_rows(exe, kernels: dict) -> None:
+    """The two kernels of the sharded path at its local shapes, each held
+    to its plain version and timed beside it, its bound and a library
+    call: shard_spmm over data group 0's rectangular local grid (10, 40,
+    512, 512) with its kept index at D 250 (layer 0's feature block), and
+    dense_engine's row-parallel product (5120, 250) @ (250, 16)."""
+    from repro_torch.kernels import dense_engine, ref, shard_spmm
+
+    dev = exe.device
+    gen = torch.Generator().manual_seed(1)
+    blk, idx = exe.group_blocks()[0], exe.group_indexes()[0]
+    s_dst, s_src, n, _ = blk.shape
+    bm = -(-exe.spec.in_dim // exe.n_model)
+    h = torch.randn((s_src, n, bm), generator=gen).to(dev)
+    out = shard_spmm.shard_spmm(blk, h, index=idx)
+    plain = ref.shard_spmm(blk, h)
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+    rows_dst, rows_src = s_dst * n, s_src * n
+    sparse = torch.sparse_csr_tensor(idx.row_ptr, idx.col, idx.val,
+                                     size=(rows_dst, rows_src))
+
+    def library():
+        # the same function over the same kept index: cuSPARSE CSR x h
+        return (sparse @ h.reshape(rows_src, -1)).reshape(out.shape)
+
+    torch.testing.assert_close(library(), plain, atol=1e-4, rtol=1e-4)
+    nnz = idx.col.numel()
+    row = _measure(out, plain,
+                   lambda: shard_spmm.shard_spmm(blk, h, index=idx),
+                   lambda: ref.shard_spmm(blk, h), library,
+                   _nbytes(idx.row_ptr, idx.col, idx.val, h, out),
+                   2.0 * nnz * bm)
+    row.update(shape={"s_dst": s_dst, "s_src": s_src, "n": n, "d": bm},
+               nnz=nnz, library="cuSPARSE CSR x h over the kept index",
+               bound_peak="3.35 TB/s; f32 67 TFLOP/s (CUDA cores)")
+    kernels["shard_spmm"]["mesh_local"] = row
+    print(f"kernel shard_spmm, mesh local grid: {row}")
+
+    x = torch.randn((rows_dst, bm), generator=gen).to(dev)
+    w = (torch.randn((bm, 16), generator=gen) * bm ** -0.5).to(dev)
+    out = dense_engine.dense_engine_matmul(x, w)
+    plain = ref.dense_engine(x, w)
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+    exact = x.double() @ w.double()
+    rel64 = ((out.double() - exact).norm() / exact.norm()).item()
+    if rel64 > DENSE_REL:
+        raise AssertionError(f"dense_engine mesh product: relative norm "
+                             f"{rel64:.3e} vs float64 above {DENSE_REL}")
+    row = _measure(out, plain,
+                   lambda: dense_engine.dense_engine_matmul(x, w),
+                   lambda: ref.dense_engine(x, w), lambda: torch.mm(x, w),
+                   _nbytes(x, w, out), 3 * 2.0 * rows_dst * bm * 16,
+                   PEAK_TF32_FLOPS)
+    row.update(shape=[rows_dst, bm, 16], rel_err_f64=rel64,
+               library="torch.mm",
+               bound_peak="3 TF32 passes at 495 TFLOP/s dense tensor "
+                          "cores, 3.35 TB/s")
+    kernels["dense_engine"]["mesh_local"] = row
+    print(f"kernel dense_engine, mesh row-parallel product: {row}")
+
+
+def _median_forward_ms(exe, reps: int = 5) -> float:
+    """Median host time of a synchronized full-graph forward, in ms."""
+    exe.forward()
+    times = []
+    for _ in range(reps):
+        _, ms = _synced(exe.forward)
+        times.append(ms)
+    return float(np.median(times))
+
+
+def mesh_phase(dev, card: str, kernels: dict) -> dict:
+    """The sharded program on a LocalMesh of data 4 x model 2 on the card
+    at full-scale Pubmed (see the module docstring, 4f). Returns the
+    kernel launches of its main path, the mesh serve run."""
+    from repro_torch import runtime
+    from repro_torch.gnn.models import ZooSpec
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.runtime.executable import _flatten_params
+    from repro_torch.serving import Completed, SchedulerConfig, Server
+    from repro_torch.serving.gnn_engine import GNNServeEngine, NodeRequest
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ds = make_dataset("pubmed", seed=0)
+    prof = ds.profile
+    mesh = make_mesh_for(MESH_RANKS, model_parallel=MESH_MODEL, device=dev)
+    specs = {a: ZooSpec(a, prof.feature_dim, 16, prof.num_classes)
+             for a in MESH_ARCHS}
+    engines = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        engines[name] = GNNServeEngine(device=dev, max_shard_n=512, mesh=m)
+        engines[name].register_graph("pubmed", ds)
+        for arch, spec in specs.items():
+            engines[name].register_model(arch, spec, seed=0)
+
+    # the main path: requests through the Server to the mesh engine
+    rng = np.random.default_rng(0)
+    reqs = [NodeRequest("pubmed", rng.integers(0, prof.num_nodes, size=8),
+                        model=MESH_ARCHS[i % len(MESH_ARCHS)])
+            for i in range(MESH_REQUESTS)]
+    server = Server(engines["mesh"], SchedulerConfig(max_batch_size=4))
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    tickets = [server.submit(r) for r in reqs]
+    server.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _lib.launches()
+    outcomes = [t.result() for t in tickets]
+    if not all(isinstance(o, Completed) for o in outcomes):
+        raise AssertionError(f"mesh serve: requests not completed: "
+                             f"{outcomes}")
+    want = engines["single"].serve(reqs)
+    for o, w in zip(outcomes, want):
+        if not np.array_equal(o.value.classes, w.classes):
+            raise AssertionError(f"mesh serve {o.value.model}: classes "
+                                 f"{o.value.classes} vs single-device "
+                                 f"{w.classes}")
+        np.testing.assert_allclose(o.value.probs, w.probs, atol=1e-5)
+    # one cold forward per arch; later requests read the cached softmax
+    expect = {k: sum(MESH_LAUNCHES[a].get(k, 0) for a in MESH_ARCHS)
+              for k in ("shard_spmm", "fused_gnn", "dense_engine",
+                        "seg_gather")}
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"mesh serve launches {launches}, expected "
+                             f"{expect}")
+    print(f"mesh serve ({card}, Pubmed {prof.num_nodes} nodes, LocalMesh "
+          f"data {mesh.n_data} x model {mesh.n_model}): {len(outcomes)} "
+          f"requests in {serve_s:.3f} s (compiles "
+          f"{engines['mesh'].stats['compile_ms_total']:.1f} ms), answers "
+          f"equal the single-device engine's; launches {launches}")
+
+    # the forward checks, each arch and placement
+    for partition in ("contiguous", "fennel"):
+        for arch in MESH_ARCHS:
+            single = engines["single"].executable(arch, "pubmed")
+            kw = dict(params=single.params, max_shard_n=512,
+                      store=engines["mesh"].store, graph_key="pubmed",
+                      mesh=mesh, partition=partition,
+                      hub_cache=MESH_HUB_CACHE)
+            exe = engines["mesh"].executable(arch, "pubmed") \
+                if partition == "contiguous" \
+                else runtime.compile(specs[arch], ds, **kw)
+            logits, fwd = _launched(exe.forward)
+            if fwd != MESH_LAUNCHES[arch]:
+                raise AssertionError(f"mesh {arch} {partition}: a forward "
+                                     f"launched {fwd}, expected "
+                                     f"{MESH_LAUNCHES[arch]}")
+            expect_single = single.forward()
+            ref = runtime.compile(specs[arch], ds, backend="reference", **kw)
+            expect_ref = ref.forward()
+            err_single = (logits - expect_single).abs().max().item()
+            err_ref = (logits - expect_ref).abs().max().item()
+            torch.testing.assert_close(logits, expect_single, atol=1e-4,
+                                       rtol=1e-4)
+            torch.testing.assert_close(logits, expect_ref, atol=1e-4,
+                                       rtol=1e-4)
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"mesh {arch}: non-finite logits")
+            cs = exe.verify_comm(rtol=0.0)
+            ag = cs["measured_allgather_wire_bytes"]
+            ar = cs["measured_wire_bytes"].get("all-reduce", 0.0)
+            if ag != MESH_ALLGATHER[partition, arch] or \
+                    ar != MESH_ALLREDUCE[arch]:
+                raise AssertionError(
+                    f"mesh {arch} {partition}: counted all-gather {ag} / "
+                    f"all-reduce {ar} wire bytes, expected "
+                    f"{MESH_ALLGATHER[partition, arch]} / "
+                    f"{MESH_ALLREDUCE[arch]}")
+            if partition == "contiguous" and arch == "gcn":
+                _mesh_kernel_rows(exe, kernels)
+            plan = exe.partition
+            print(f"mesh forward {arch} {partition} ({card}): vs "
+                  f"single-device max_abs_err {err_single:.3e}, vs "
+                  f"sharded reference {err_ref:.3e}; launches {fwd}; "
+                  f"counted all-gather {ag:.0f} B (ops "
+                  f"{cs['measured_allgather_ops']}), all-reduce {ar:.0f} "
+                  f"B, counts {cs['measured_counts']}; cross-group edges "
+                  f"{plan.cross_group_edge_frac:.4f}, caps hub "
+                  f"{plan.hub_cap} halo {plan.halo_cap}, imbalance "
+                  f"{plan.edge_imbalance:.3f}; partition host "
+                  f"{exe.partition_host_ms:.1f} ms; forward median ms "
+                  f"(host clock, synchronized) sharded "
+                  f"{_median_forward_ms(exe):.3f} vs single-device "
+                  f"{_median_forward_ms(single):.3f}")
+            del exe, ref, logits
+    for arch in ("sage_max", "gat"):
+        try:
+            runtime.compile(ZooSpec(arch, prof.feature_dim, 16,
+                                    prof.num_classes), ds, mesh=mesh,
+                            max_shard_n=512)
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"mesh {arch}: compiled, expected "
+                             f"NotImplementedError")
+
+    # data-parallel training: gcn, contiguous
+    spec = specs["gcn"]
+    single = engines["single"].executable("gcn", "pubmed")
+    trainers = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        exe = runtime.compile(spec, ds, device=dev, params=single.params,
+                              max_shard_n=512, mesh=m,
+                              store=engines[name].store, graph_key="pubmed")
+        trainers[name] = runtime.TrainableExecutable(
+            exe, ds.labels, train_mask=ds.train_mask)
+    tr = trainers["mesh"]
+    batch = tr.data(0)
+    (loss, _, grads), step = _launched(
+        lambda: tr.loss_and_grads(tr.params, batch))
+    if step != MESH_LAUNCHES["gcn"]:
+        raise AssertionError(f"mesh train: a step launched {step}")
+    trs = trainers["single"]
+    loss_s, _, grads_s = trs.loss_and_grads(trs.params, trs.data(0))
+    ours, theirs = (_flatten_params(g) for g in (grads, grads_s))
+    rels = {k: float(np.linalg.norm(ours[k] - g) / max(np.linalg.norm(g),
+                                                       1e-30))
+            for k, g in theirs.items()}
+    if max(rels.values()) > GRAD_REL:
+        raise AssertionError(f"mesh train: step-0 gradients vs "
+                             f"single-device, relative norms {rels}")
+    t0 = time.perf_counter()
+    res = runtime.fit(spec, ds, steps=MESH_TRAIN_STEPS, lr=TRAIN_LR,
+                      device=dev, params=single.params, max_shard_n=512,
+                      mesh=mesh, store=engines["mesh"].store,
+                      log_every=1, log=lambda line: None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = [x for _, x in res.history]
+    if len(losses) != MESH_TRAIN_STEPS or not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh fit: losses {losses}")
+    tcs = res.trainable.verify_train_comm()
+    step_ms = []
+    for _ in range(3):
+        _, ms = _synced(lambda: tr.step_fn(tr.params, tr.opt_state, batch))
+        step_ms.append(ms)
+    print(f"mesh train gcn ({card}): step-0 loss {loss.item():.6f} "
+          f"(single-device {loss_s.item():.6f}), gradient relative norms "
+          f"max {max(rels.values()):.3e} (limit {GRAD_REL}); step launches "
+          f"{step}; fit {MESH_TRAIN_STEPS} steps in {fit_s:.3f} s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; train step collectives "
+          f"{tcs['measured_counts']} wire "
+          f"{ {k: int(v) for k, v in tcs['measured_wire_bytes'].items()} }; "
+          f"step median {float(np.median(step_ms)):.3f} ms (host clock, "
+          f"synchronized)")
+    del trainers, tr, trs, res, engines, server, single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _mesh_stream(dev, card, mesh, specs["gcn"])
+    torch.cuda.synchronize()
+    print(f"mesh phase wall time ({card}): "
+          f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_stream(dev, card: str, mesh, spec) -> None:
+    """Streaming on the mesh: a mutable fennel gcn engine and a mutable
+    contiguous one take ``MESH_DELTAS`` deltas each through
+    ``Server.mutate`` (``random_delta``, seed 0), every one in template;
+    then fennel's logits are held to a fresh single-device compile of the
+    post-delta graph (1e-4), contiguous's to a fresh sharded compile
+    (bitwise)."""
+    from repro_torch import runtime
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.serving import Completed, SchedulerConfig, Server
+    from repro_torch.serving.gnn_engine import GNNServeEngine, NodeRequest
+    from repro_torch.stream import random_delta
+
+    for partition in ("fennel", "contiguous"):
+        ds = make_dataset("pubmed", seed=0)      # each engine mutates its own
+        engine = GNNServeEngine(device=dev, max_shard_n=512, mesh=mesh,
+                                partition=partition,
+                                hub_cache=MESH_HUB_CACHE, streaming=True)
+        engine.register_graph("pubmed", ds)
+        engine.register_model("gcn", spec, seed=0)
+        server = Server(engine, SchedulerConfig(max_batch_size=4))
+        rng = np.random.default_rng(0)
+        ticket = server.submit(NodeRequest("pubmed", np.arange(8), "gcn"))
+        server.drain()
+        if not isinstance(ticket.result(), Completed):
+            raise AssertionError(f"mesh stream: {ticket.result()}")
+        exe = engine.executable("gcn", "pubmed")
+        caps = (exe.partition.hub_cap, exe.partition.halo_cap)
+        walls = []
+        for _ in range(MESH_DELTAS):
+            delta = random_delta(ds, rng, edge_ops=STREAM_EDGE_OPS,
+                                 p_node=STREAM_P_NODE)
+            rep, wall = _synced(lambda: server.mutate("pubmed", delta))
+            walls.append(wall)
+            if any(m.get("recompile") for m in rep["executables"]):
+                raise AssertionError(f"mesh stream {partition}: a delta "
+                                     f"left the template: {rep}")
+        if engine.executable("gcn", "pubmed") is not exe or \
+                engine.stats["graph_recompiles"]:
+            raise AssertionError(f"mesh stream {partition}: recompiled")
+        logits = exe.forward()
+        kw = dict(device=dev, params=engine.model_params("gcn"),
+                  max_shard_n=512, store=runtime.GraphStore())
+        if partition == "fennel":
+            fresh = runtime.compile(spec, ds, **kw).forward()
+            err = (logits - fresh).abs().max().item()
+            torch.testing.assert_close(logits, fresh, atol=1e-4, rtol=1e-4)
+            verdict = f"vs a fresh single-device compile max_abs_err {err:.3e}"
+        else:
+            fresh = runtime.compile(spec, ds, mesh=mesh, **kw).forward()
+            if not torch.equal(logits, fresh):
+                raise AssertionError(
+                    f"mesh stream contiguous: logits differ from a fresh "
+                    f"sharded compile by "
+                    f"{(logits - fresh).abs().max().item():.3e}")
+            verdict = "bitwise equal to a fresh sharded compile"
+        print(f"mesh stream {partition} ({card}): {MESH_DELTAS} deltas in "
+              f"template (caps hub/halo {caps} -> "
+              f"{(exe.partition.hub_cap, exe.partition.halo_cap)}), "
+              f"synchronized mutate ms {[round(w, 1) for w in walls]} "
+              f"(re-partition host {exe.partition_host_ms:.1f} ms last); "
+              f"{ds.profile.num_nodes} nodes after; post-delta logits "
+              f"{verdict}")
+        del engine, server, exe, logits, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _attention_pairs(sq: int, skv: int) -> int:
     """(q, k) pairs a causal mask keeps: row i sees keys 0 .. Skv - Sq + i."""
     seen = np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv)
@@ -1713,6 +2097,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     stream_launches = stream_phase(dev, card, max_shard_n)
     tune_launches = tune_phase(dev, card)
+    mesh_launches = mesh_phase(dev, card, kernels)
 
     attention_kernel_phase(torch.device("cuda"), kernels)
     kernels["flash_attention"]["launches"] = lm_serve_phase(card)
@@ -1720,6 +2105,7 @@ def main() -> None:
         row["train_step_launches"] = train_launches.get(name, 0)
         row["stream_launches"] = stream_launches.get(name, 0)
         row["tune_launches"] = tune_launches.get(name, 0)
+        row["mesh_launches"] = mesh_launches.get(name, 0)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

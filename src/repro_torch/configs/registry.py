@@ -21,7 +21,7 @@ def _module(arch: str):
     if arch not in _MODULES:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet; the port serves {ARCHS} "
-            f"(ROADMAP.md, Queue 1 item 5)")
+            f"(ROADMAP.md, Queue 1 item 7)")
     return importlib.import_module(_MODULES[arch])
 
 

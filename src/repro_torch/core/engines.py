@@ -15,6 +15,7 @@ import dataclasses
 import functools
 from typing import Literal
 
+import numpy as np
 import torch
 
 from repro_torch.core.sharding import ShardedGraph
@@ -64,6 +65,13 @@ class GraphTensors:
         only gather never build it."""
         with torch.inference_mode(False):
             return csr.linear_index(self.blocks)
+
+    @property
+    def occupancy(self) -> np.ndarray:
+        """(S, S) edge count per shard pair, on the host (a sync): lets
+        ``graphs/partition.py`` plan over device tensors as over a
+        ``ShardedGraph``."""
+        return self.edge_valid.sum(dim=-1).cpu().numpy()
 
     @property
     def device(self) -> torch.device:

@@ -13,8 +13,9 @@ environment that :func:`describe` records beside it.
 The reference's ``repro.env`` also pins the jax platform, the host
 device count and 64-bit arrays. They have no counterpart here: the
 port's device is an explicit argument of every entry point, its dtype is
-an explicit float32, and a CPU mesh waits for the port of ``repro.dist``
-(ROADMAP.md Queue 1 item 5).
+an explicit float32, and a mesh of many ranks on one device is an
+explicit :class:`~repro_torch.dist.mesh.LocalMesh`, which needs no
+forced device count.
 """
 from __future__ import annotations
 

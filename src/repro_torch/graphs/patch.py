@@ -89,8 +89,8 @@ def pair_rows(pairs: tuple | None, n: int, num_nodes: int) -> np.ndarray | None:
     group assignment revisited after a streaming mutate; coarser than
     the k-hop affected set but available even when targeted invalidation
     is off. ``None`` pairs (compaction rebuild) -> ``None`` (re-score
-    everything the caller wants). The port has no partitioned executable
-    yet (ROADMAP.md Queue 1 item 5), so nothing passes the hint on."""
+    everything the caller wants). ``GNNServeEngine.mutate`` passes it to
+    every executable's ``update_graph``."""
     if pairs is None:
         return None
     ai, aj = (np.asarray(p, dtype=np.int64) for p in pairs)

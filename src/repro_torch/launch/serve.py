@@ -18,6 +18,15 @@ GNN node classification::
     PYTHONPATH=src python -m repro_torch.launch.serve --mode gnn \
         --graphs pubmed --models gcn,sage_mean,sage_max,gin,gat
 
+Sharded over a (data, model) mesh of ``--mesh`` ranks in one process on
+the card (``--model-parallel`` of them on the model axis; gcn, sage_mean
+and gin; ``--partition fennel`` with a ``--hub-cache``-vertex hub
+cache)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode gnn \
+        --graphs pubmed --models gcn,sage_mean,gin --mesh 8 \
+        --model-parallel 2 --partition fennel
+
 ``--plan autotune`` compiles each (model, graph) pair with the plan the
 autotuner measured fastest on the device (``--tune-budget`` candidates
 at most; winners memoized in ``REPRO_PLAN_CACHE`` when it is set).
@@ -70,11 +79,28 @@ def build_engine(args) -> tuple[GNNServeEngine, dict]:
     """Engine with every (graph, model) pair registered as ``model@graph``."""
     graphs = [g.strip() for g in args.graphs.split(",") if g.strip()]
     models = [m.strip() for m in args.models.split(",") if m.strip()]
+    mesh = None
+    if args.mesh:
+        from repro_torch.dist.gnn import SUPPORTED_ARCHS
+        from repro_torch.launch.mesh import mesh_from_cli
+
+        bad = [m for m in models if m not in SUPPORTED_ARCHS]
+        if bad:
+            raise SystemExit(f"--mesh serving supports {SUPPORTED_ARCHS}; "
+                             f"drop {bad} from --models")
+        mesh = mesh_from_cli(args.mesh, args.model_parallel, args.device)
+        print(f"mesh: {args.mesh} ranks as data="
+              f"{args.mesh // args.model_parallel} x model="
+              f"{args.model_parallel} on {mesh.device} (sharded "
+              f"Executables, partition {args.partition}, hub cache "
+              f"{args.hub_cache} rows)")
     if args.plan == "autotune":
         print(f"plan source: autotune (budget {args.tune_budget} candidates "
               f"per (model, graph); winners memoized via REPRO_PLAN_CACHE)")
     engine = GNNServeEngine(device=args.device, max_shard_n=args.shard_n,
-                            backend=args.backend, plan=args.plan,
+                            backend=args.backend, mesh=mesh,
+                            partition=args.partition,
+                            hub_cache=args.hub_cache, plan=args.plan,
                             tune_budget=args.tune_budget)
     datasets = {}
     for g in graphs:
@@ -206,6 +232,21 @@ def parser() -> argparse.ArgumentParser:
                     help="--plan autotune: max candidate plans measured "
                          "per (model, graph)")
     ap.add_argument("--shard-n", type=int, default=512)
+    ap.add_argument("--mesh", type=int, default=0, metavar="RANKS",
+                    help="serve sharded Executables on a (data, model) "
+                         "mesh of this many ranks in this process (0 = "
+                         "single device)")
+    ap.add_argument("--model-parallel", type=int, default=2,
+                    help="model-axis size of the --mesh (data axis = "
+                         "mesh / model-parallel)")
+    ap.add_argument("--partition", choices=["contiguous", "fennel"],
+                    default="contiguous",
+                    help="data-axis placement for --mesh serving: "
+                         "contiguous dst-row ranges, or the fennel "
+                         "locality partitioner + hub cache")
+    ap.add_argument("--hub-cache", type=int, default=256,
+                    help="--partition fennel: top-k out-degree vertices "
+                         "replicated to every data group")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--nodes-per-req", type=int, default=8)
     # shared scheduler policy

@@ -19,9 +19,12 @@ On the CPU (the kernels' plain versions; keep ``--scale`` small)::
     PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \
         --scale 0.1 --steps 4 --mutations 10 --finetune-every 5
 
-Not ported yet: ``--mesh`` / ``--model-parallel`` (sharded serving, which
-raise ``NotImplementedError``: ROADMAP.md Queue 1 item 5) and the
-reference's lock sanitizer (``REPRO_LOCKSAN``, Queue 1 item 6).
+``--mesh N --model-parallel M`` serves sharded Executables on a (data,
+model) mesh of N ranks in this process (gcn, sage_mean, gin; the
+contiguous placement); the StreamTrainer fine-tunes its own
+single-device mini-batch unit and reloads the weights into them. Not
+ported yet: the reference's lock sanitizer (``REPRO_LOCKSAN``, ROADMAP.md
+Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -29,8 +32,6 @@ import argparse
 import time
 
 import numpy as np
-
-_MESH = "ROADMAP.md Queue 1, item 5 (dist)"
 
 
 def run(args) -> dict:
@@ -41,11 +42,12 @@ def run(args) -> dict:
     from repro_torch.serving.gnn_engine import GNNServeEngine, NodeRequest
     from repro_torch.stream import StreamTrainer, random_delta
 
-    if args.mesh or args.model_parallel is not None:
-        raise NotImplementedError(
-            f"streaming on a mesh (--mesh, --model-parallel) is not ported "
-            f"yet: {_MESH}")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import mesh_from_cli
+
+        mesh = mesh_from_cli(args.mesh, args.model_parallel, device)
     rng = np.random.default_rng(args.seed)
     data = make_dataset(args.graph, scale=args.scale, seed=args.seed)
     prof = data.profile
@@ -55,7 +57,7 @@ def run(args) -> dict:
     spec = ZooSpec(args.arch, prof.feature_dim, args.hidden,
                    prof.num_classes, num_layers=args.layers,
                    heads=args.heads)
-    engine = GNNServeEngine(device=device, backend=args.backend,
+    engine = GNNServeEngine(device=device, backend=args.backend, mesh=mesh,
                             max_shard_n=args.shard_n, streaming=True,
                             edge_slack=args.edge_slack,
                             invalidation=args.invalidation)
@@ -138,11 +140,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--hidden", type=int, default=16)
     ap.add_argument("--heads", type=int, default=2)
     ap.add_argument("--shard-n", type=int, default=512)
-    ap.add_argument("--mesh", type=int, default=0, metavar="DEVICES",
-                    help="serve on a mesh of this many devices (not "
-                         "ported: raises)")
-    ap.add_argument("--model-parallel", type=int, default=None,
-                    help="model-axis size of the mesh (not ported: raises)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="RANKS",
+                    help="serve on a (data, model) mesh of this many ranks "
+                         "in this process (0 = single device)")
+    ap.add_argument("--model-parallel", type=int, default=2,
+                    help="model-axis size of the --mesh")
     ap.add_argument("--batch-size", type=int, default=8)
     # mutation workload
     ap.add_argument("--mutations", type=int, default=50,

@@ -16,13 +16,19 @@ On the CPU (the plain PyTorch versions; keep ``--scale`` small)::
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --device cpu \
         --dataset cora --arch gcn --steps 4 --scale 0.25
 
+Data-parallel over a (data, model) mesh of ``--mesh`` ranks in one
+process on the card (full-batch; the replicated parameters' gradients
+are all-reduced over the mesh; ``--verify-comm`` checks the train step's
+counted collectives)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train_gnn \
+        --dataset pubmed --arch gcn --steps 20 --mesh 8 \
+        --model-parallel 2 --verify-comm
+
 ``--ckpt-dir`` makes the run resumable: interrupt it, rerun the same
 command, and it continues from the latest checkpoint to ``--steps``.
 ``--plan autotune`` trains with the plan the autotuner measured fastest
-on the device (``--tune-budget`` candidates at most). The reference's
-``--mesh`` (with ``--model-parallel``, ``--partition``, ``--hub-cache``,
-``--verify-comm``) is accepted and raises ``NotImplementedError``: it is
-ROADMAP.md Queue 1 item 5.
+on the device (``--tune-budget`` candidates at most; not on a mesh).
 """
 from __future__ import annotations
 
@@ -59,12 +65,15 @@ def parser() -> argparse.ArgumentParser:
                          "many seed nodes per step")
     ap.add_argument("--fanout", default="10,5",
                     help="comma per-layer neighbor sample counts")
-    ap.add_argument("--mesh", type=int, default=0, metavar="DEVICES",
-                    help="data-parallel full-batch training (not ported)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="RANKS",
+                    help="data-parallel full-batch training on a (data, "
+                         "model) mesh of this many ranks in this process")
     ap.add_argument("--model-parallel", type=int, default=2)
     ap.add_argument("--partition", choices=["contiguous", "fennel"],
                     default="contiguous",
-                    help="--mesh data-axis placement (not ported)")
+                    help="--mesh data-axis placement: contiguous dst-row "
+                         "ranges, or the fennel locality partitioner + "
+                         "replicated hub-feature cache")
     ap.add_argument("--hub-cache", type=int, default=256,
                     help="--partition fennel: replicated hub vertices")
     ap.add_argument("--verify-comm", action="store_true",
@@ -86,11 +95,14 @@ def main(argv=None) -> None:
     from repro_torch.gnn.models import ZooSpec
     from repro_torch.graphs.datasets import make_dataset
 
-    if args.mesh or args.verify_comm or args.partition != "contiguous":
-        raise NotImplementedError(
-            "--mesh / --partition / --verify-comm: data-parallel training "
-            "is not ported yet (ROADMAP.md Queue 1, item 5)")
     dev = runtime.resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import mesh_from_cli
+
+        mesh = mesh_from_cli(args.mesh, args.model_parallel, dev)
+        print(f"mesh: data={args.mesh // args.model_parallel} x "
+              f"model={args.model_parallel} on {dev}")
 
     ds = make_dataset(args.dataset, seed=0, scale=args.scale)
     print(f"{ds.profile.name}: {ds.profile.num_nodes} nodes, "
@@ -107,7 +119,8 @@ def main(argv=None) -> None:
         warmup_steps=max(0, args.steps // 20) if args.schedule != "constant"
         else 0,
         batch_nodes=args.batch_nodes, fanout=fanout, device=dev,
-        backend=args.backend, max_shard_n=args.shard_n, plan=args.plan,
+        backend=args.backend, mesh=mesh, partition=args.partition,
+        hub_cache=args.hub_cache, max_shard_n=args.shard_n, plan=args.plan,
         tune_budget=args.tune_budget, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
         log_every=args.log_every)
@@ -120,6 +133,15 @@ def main(argv=None) -> None:
     print(f"trained {args.arch} on {ds.profile.name} [{regime}] "
           f"{steps_run}/{args.steps} steps in {dt:.1f}s; "
           f"train accuracy {result.train_accuracy():.3f}")
+
+    if mesh is not None and args.verify_comm:
+        cs = result.trainable.verify_train_comm()
+        wire = cs["measured_wire_bytes"]
+        print("train-step collectives (wire bytes): "
+              + ", ".join(f"{k}={v:.3g}" for k, v in sorted(wire.items())))
+        print(f"forward all-gather model: "
+              f"{cs['forward_allgather_wire_bytes']:.3g} B "
+              f"(counted all-gather >= model: verified)")
 
     if args.save_params:
         result.executable.save_params(args.save_params)

@@ -3,7 +3,7 @@
 The port of the reference's unified ``models/lm.py`` for configs whose
 every block is ``attn`` with a dense MLP, token inputs and one codebook;
 any other config raises ``NotImplementedError`` (ROADMAP.md, Queue 1
-item 5). Parameters are the reference's tree — dicts and lists with the
+item 7). Parameters are the reference's tree — dicts and lists with the
 same key names, shapes and dtypes — so they cross between the packages
 through :func:`params_from_numpy`.
 
@@ -48,7 +48,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue 1 item 5)")
+            f"Queue 1 item 7)")
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,7 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
     if cfg.rope_kind != "rope":
         raise NotImplementedError(
             f"rope_kind {cfg.rope_kind!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 5: M-RoPE)")
+            f"Queue 1 item 7.5: M-RoPE)")
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 

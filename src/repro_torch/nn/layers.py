@@ -41,7 +41,7 @@ def init_leaf(gen: torch.Generator, dtype: torch.dtype) -> Leaf:
             return torch.zeros(shape, dtype=dtype, device=device)
         raise NotImplementedError(
             f"init {init!r} ({name}) belongs to a block kind that is not "
-            f"ported yet (ROADMAP.md, Queue 1 item 5)")
+            f"ported yet (ROADMAP.md, Queue 1 item 7)")
 
     return leaf
 

@@ -1,5 +1,5 @@
 """Rotary position embeddings (standard RoPE; Qwen2-VL's M-RoPE is not
-ported yet, ROADMAP.md Queue 1 item 5)."""
+ported yet, ROADMAP.md Queue 1 item 7.5)."""
 from __future__ import annotations
 
 import torch

@@ -6,7 +6,8 @@ autotuner measures its top-k candidates on the device and picks the
 fastest (``plan="autotune"``, :mod:`repro_torch.tune`) — the graph is
 sharded + normalization-baked once per signature (shared through a
 GraphStore), and parameters are initialized (or adopted) on the device,
-pinned with one kernel backend.
+pinned with one kernel backend. With ``mesh=`` the compiled unit is a
+:class:`~repro_torch.dist.gnn.ShardedExecutable` on that mesh.
 """
 from __future__ import annotations
 
@@ -93,7 +94,10 @@ def compile(spec: ZooSpec, graph, *,
             tune_reps: int = 3,
             tune_warmup: int = 1,
             tune_timeout_s: float | None = 30.0,
-            plan_cache_dir=None) -> Executable:
+            plan_cache_dir=None,
+            mesh=None,
+            partition: str = "contiguous",
+            hub_cache: int = 256) -> Executable:
     """Plan, shard and place one zoo model for one graph.
 
     Args:
@@ -135,10 +139,37 @@ def compile(spec: ZooSpec, graph, *,
         for ``plan="analytic"``.
       plan_cache_dir: persist/load plans (and autotuned winners) as JSON
         (default: the ``REPRO_PLAN_CACHE`` environment variable).
+      mesh: a ``(data, model)`` mesh (:mod:`repro_torch.dist.mesh`, e.g.
+        ``launch.mesh.make_mesh_for(8, model_parallel=2)``): compile a
+        :class:`~repro_torch.dist.gnn.ShardedExecutable` whose forward
+        runs across it (gcn, sage_mean and gin; the others raise
+        ``NotImplementedError``). The graph lives on the mesh's device
+        (``device``, if given, must name it). Mesh compiles key the plan
+        memo on the partition method; ``plan="autotune"`` cannot tune a
+        sharded forward and raises ``ValueError``.
+      partition: the data-axis placement on a mesh: ``"contiguous"``
+        dst-row ranges or the ``"fennel"`` locality partitioner with a
+        replicated ``hub_cache``-vertex hub cache (ignored without a
+        mesh). Mutable graphs get ``edge_slack`` headroom on fennel's
+        send capacities, so streaming deltas re-partition in template.
     """
     if plan not in ("analytic", "autotune"):
         raise ValueError(f"plan must be 'analytic' or 'autotune', "
                          f"got {plan!r}")
+    if partition not in ("contiguous", "fennel"):
+        raise ValueError(f"partition must be 'contiguous' or 'fennel', "
+                         f"got {partition!r}")
+    if mesh is not None:
+        if plan == "autotune":
+            raise ValueError(
+                "plan='autotune' measures the single-device forward and "
+                "cannot tune sharded (mesh=) execution yet; compile with "
+                "plan='analytic' on a mesh")
+        if device is None:
+            device = mesh.device
+        elif torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{mesh.device}")
     dev = resolve_device(device)
     edges, num_nodes, features = _as_graph(graph)
     be = registry.resolve(backend)
@@ -157,6 +188,13 @@ def compile(spec: ZooSpec, graph, *,
     plan_kw = dict(platform=platform, max_n=max_shard_n)
     if block_candidates is not None:
         plan_kw["block_candidates"] = tuple(block_candidates)
+    if mesh is not None:
+        # the per-layer plan drives the sharded program's exchanges, so a
+        # contiguous-keyed plan is never served for a fennel compile (and
+        # vice versa)
+        plan_kw["scope"] = {
+            "mesh_partition": partition,
+            "hub_cache": int(hub_cache) if partition == "fennel" else 0}
     plan_source, tune_report = "analytic", None
     if plan == "autotune":
         from repro_torch import tune
@@ -175,9 +213,16 @@ def compile(spec: ZooSpec, graph, *,
     entry = store.get(graph_key, edges, num_nodes, mplan.shard_n, spec.arch,
                       features=features, device=dev, version=graph_version,
                       mutable=mutable_graph, edge_slack=edge_slack)
-    exe = Executable(spec=spec, plan=mplan, backend=be, gt=entry.gt,
-                     h_grouped=entry.h_grouped, params=params,
-                     graph_key=graph_key, plan_source=plan_source,
-                     tune_report=tune_report)
+    kw = dict(spec=spec, plan=mplan, backend=be, gt=entry.gt,
+              h_grouped=entry.h_grouped, params=params, graph_key=graph_key,
+              plan_source=plan_source, tune_report=tune_report)
+    if mesh is not None:
+        from repro_torch.dist.gnn import ShardedExecutable
+
+        exe: Executable = ShardedExecutable(
+            mesh=mesh, partition=partition, hub_cache=hub_cache,
+            partition_slack=edge_slack if mutable_graph else 0.0, **kw)
+    else:
+        exe = Executable(**kw)
     exe.graph_version = graph_version
     return exe

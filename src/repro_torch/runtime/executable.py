@@ -269,8 +269,24 @@ class Executable:
         forward. ``stale_nodes`` (the delta's k-hop affected set) makes
         the invalidation targeted; None, or a node-count change, flushes
         the whole softmax cache. ``refine_nodes`` is a placement re-score
-        hint for partitioned executables, ignored here. Returns the
-        number of cached rows invalidated."""
+        hint for partitioned executables (``dist/gnn.py``), ignored here.
+        Returns the number of cached rows invalidated."""
+        self._check_template(gt, h_grouped)
+        if h_grouped is not None:
+            self._h_grouped = h_grouped
+        grew = gt.num_nodes != self.gt.num_nodes
+        self.gt = gt
+        if stale_nodes is None or grew:
+            rows = self.cached_rows
+            self.invalidate()
+            return rows
+        return self.invalidate_nodes(stale_nodes)
+
+    def _check_template(self, gt: GraphTensors,
+                        h_grouped: torch.Tensor | None) -> None:
+        """Raise ValueError unless ``gt`` (and ``h_grouped``) keep the
+        compiled template: every graph tensor's shape and dtype, the grid,
+        the grouped features' shape."""
         names = ("blocks", "edge_src", "edge_dst", "edge_valid")
         for name in names:
             o, nw = getattr(self.gt, name), getattr(gt, name)
@@ -284,21 +300,12 @@ class Executable:
             raise ValueError(
                 f"graph template break: grid {self.gt.S}x{self.gt.n} -> "
                 f"{gt.S}x{gt.n} — recompile required")
-        if h_grouped is not None:
-            if self._h_grouped is not None and \
-                    h_grouped.shape != self._h_grouped.shape:
-                raise ValueError(
-                    f"feature template break: "
-                    f"{tuple(self._h_grouped.shape)} -> "
-                    f"{tuple(h_grouped.shape)} — recompile required")
-            self._h_grouped = h_grouped
-        grew = gt.num_nodes != self.gt.num_nodes
-        self.gt = gt
-        if stale_nodes is None or grew:
-            rows = self.cached_rows
-            self.invalidate()
-            return rows
-        return self.invalidate_nodes(stale_nodes)
+        if h_grouped is not None and self._h_grouped is not None and \
+                h_grouped.shape != self._h_grouped.shape:
+            raise ValueError(
+                f"feature template break: "
+                f"{tuple(self._h_grouped.shape)} -> "
+                f"{tuple(h_grouped.shape)} — recompile required")
 
     def set_params(self, params: dict) -> None:
         """Adopt ``params`` (moved to this Executable's device) and drop

@@ -1,10 +1,10 @@
 """End-to-end GNN training over compiled Executables (``runtime.fit``).
 
-The port of ``repro.runtime.fit``, single-device. A training step runs
-the same forward as serving, through the same kernels (on the card, the
-hand-written ones), recorded by autograd; each kernel's backward is
-autograd of its plain version, as the reference differentiates its
-oracles (``kernels/registry.py``: ``_with_plain_vjp``)::
+The port of ``repro.runtime.fit``. A training step runs the same forward
+as serving, through the same kernels (on the card, the hand-written
+ones), recorded by autograd; each kernel's backward is autograd of its
+plain version, as the reference differentiates its oracles
+(``kernels/registry.py``: ``_with_plain_vjp``)::
 
     result = runtime.fit(spec, graph, steps=200)
     result.executable.predict([0, 7, 9])     # serves the trained weights
@@ -13,7 +13,12 @@ oracles (``kernels/registry.py``: ``_with_plain_vjp``)::
 :class:`~repro_torch.runtime.executable.Executable` with an AdamW train
 step (:mod:`repro_torch.training.optimizer`) in two regimes:
 
-  * **full-batch** — masked cross-entropy over the full-graph forward;
+  * **full-batch** — masked cross-entropy over the full-graph forward,
+    on one device or (``mesh=``) data-parallel over a sharded
+    Executable (:mod:`repro_torch.dist.gnn`): the loss enters once per
+    data group, autograd runs the collectives' transposes, and the
+    replicated parameters' gradients are all-reduced over the mesh
+    (:meth:`TrainableExecutable.train_comm_stats` counts all three);
   * **mini-batch** — a :class:`~repro_torch.graphs.sampler.NeighborSampler`
     draws fixed-budget subgraphs; each is sharded to one (S, n) grid
     (the planner's, as in the reference) and its edge lists padded to
@@ -31,10 +36,6 @@ node data) between rounds of the streaming fine-tune
 ``plan="autotune"`` trains with the plan the autotuner measured fastest
 on the device (:mod:`repro_torch.tune`), so training runs the tuned
 plan's kernels.
-
-Not ported yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): data-parallel ``mesh=`` training and the train step's
-collective accounting.
 """
 from __future__ import annotations
 
@@ -57,8 +58,6 @@ from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update, make_schedule,
                                             tree_leaves, tree_map,
                                             tree_unflatten)
-
-_MESH = "ROADMAP.md Queue 1, item 5 (dist)"
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -134,6 +133,11 @@ class TrainableExecutable:
             self._full_batch = (h, torch.from_numpy(self._labels).to(dev),
                                 torch.from_numpy(self._train_mask).to(dev))
         else:
+            if getattr(exe, "mesh", None) is not None:
+                raise NotImplementedError(
+                    "mini-batch training is single-device; mesh training "
+                    "runs full-batch (the sampled subgraph is already the "
+                    "parallelism unit)")
             if features is None:
                 raise ValueError("mini-batch training needs raw features= "
                                  "(the compiled h_grouped covers the full "
@@ -201,7 +205,9 @@ class TrainableExecutable:
 
     def loss_and_grads(self, params, batch):
         """(loss, logits, grads) of the masked cross-entropy at
-        ``params`` on ``batch``; grads has params' tree structure."""
+        ``params`` on ``batch``; grads has params' tree structure. On a
+        mesh the gradients of the replicated parameters are all-reduced
+        over it (the data-parallel reduction)."""
         fwd, (h, labels, mask) = self._forward_for(batch)
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
@@ -209,6 +215,9 @@ class TrainableExecutable:
             logits = fwd(tree_unflatten(params, leaves), h)
             loss = masked_cross_entropy(logits, labels, mask)
             grads = torch.autograd.grad(loss, leaves)
+        mesh = getattr(self.executable, "mesh", None)
+        if mesh is not None:
+            grads = mesh.reduce_gradients(list(grads))
         return (loss.detach(), logits.detach(),
                 tree_unflatten(params, grads))
 
@@ -337,12 +346,48 @@ class TrainableExecutable:
     # -- distributed accounting --------------------------------------------
 
     def train_comm_stats(self) -> dict:
-        raise NotImplementedError(
-            f"the train step's collective accounting needs mesh training, "
-            f"which is not ported yet: {_MESH}")
+        """Collective traffic of one TRAIN step (mesh runs only): the
+        counted per-kind wire bytes and counts of a forward, backward and
+        gradient reduction at the current parameters (nothing updated),
+        next to the forward all-gather model — the backward adds the
+        all-gathers' transposes (reduce-scatter), the psums' (all-reduce)
+        and the data-parallel gradient all-reduce."""
+        exe = self.executable
+        if getattr(exe, "mesh", None) is None:
+            raise ValueError("train_comm_stats needs a mesh-compiled "
+                             "Executable (runtime.fit(..., mesh=...))")
+        with exe.mesh.comm.capture() as log:
+            self.loss_and_grads(self.params, self.data(0))
+        stats = log.stats()
+        return {
+            "measured_wire_bytes": dict(stats.wire_bytes),
+            "measured_counts": dict(stats.counts),
+            "forward_allgather_wire_bytes":
+                sum(exe._layer_allgather_bytes()),
+            "n_data": exe.n_data,
+            "n_model": exe.n_model,
+        }
 
     def verify_train_comm(self) -> dict:
-        return self.train_comm_stats()
+        """Check that the train step's counted collectives are consistent
+        with the forward model: at least the forward all-gather volume on
+        the wire, plus a reduction collective carrying the data-parallel
+        gradient reduction; raise AssertionError otherwise. Returns
+        :meth:`train_comm_stats`."""
+        cs = self.train_comm_stats()
+        measured_ag = cs["measured_wire_bytes"].get("all-gather", 0.0)
+        expected_fwd = cs["forward_allgather_wire_bytes"]
+        if measured_ag < 0.98 * expected_fwd:
+            raise AssertionError(
+                f"train step all-gather wire bytes {measured_ag:,.0f} below "
+                f"the forward model {expected_fwd:,.0f}")
+        if cs["n_data"] * cs["n_model"] > 1:
+            reduces = sum(cs["measured_counts"].get(k, 0)
+                          for k in ("all-reduce", "reduce-scatter"))
+            if not reduces:
+                raise AssertionError(f"train step issued no reduction: "
+                                     f"{cs['measured_counts']}")
+        return cs
 
 
 @dataclasses.dataclass
@@ -367,12 +412,13 @@ def fit(spec: ZooSpec, graph, labels=None, *,
         schedule: str = "constant", warmup_steps: int = 0,
         batch_nodes: int = 0, fanout: Sequence[int] = (10, 5),
         device: torch.device | str | None = None, backend=None,
-        mesh=None, max_shard_n: int = 1024, plan: str = "analytic",
+        mesh=None, partition: str = "contiguous", hub_cache: int = 256,
+        max_shard_n: int = 1024, plan: str = "analytic",
         tune_budget: int = 16, params: dict | None = None, seed: int = 0,
         store=None, ckpt_manager=None, ckpt_dir=None, ckpt_every: int = 50,
         log_every: int = 25, log: Callable[[str], None] = print
         ) -> FitResult:
-    """Compile one zoo model and train it end to end on one device.
+    """Compile one zoo model and train it end to end.
 
     Args:
       spec: the :class:`~repro_torch.gnn.models.ZooSpec` to train.
@@ -387,7 +433,13 @@ def fit(spec: ZooSpec, graph, labels=None, *,
         of this many seed nodes with per-layer ``fanout``.
       device / backend: as :func:`runtime.compile` (``cuda`` and the
         hand-written kernels by default).
-      mesh: not ported yet; it raises.
+      mesh: a ``(data, model)`` mesh (:mod:`repro_torch.dist.mesh`):
+        full-batch data-parallel training over the sharded forward (the
+        gradient reduction is :meth:`TrainableExecutable.loss_and_grads`'s;
+        mini-batch training on a mesh raises ``NotImplementedError``).
+      partition / hub_cache: the data-axis placement for mesh training,
+        as :func:`runtime.compile` (``"fennel"`` trains through the
+        permuted row groups and the hub cache).
       ckpt_manager / ckpt_dir: resume + periodic checkpointing through
         :class:`~repro_torch.checkpoint.manager.CheckpointManager`.
 
@@ -395,9 +447,6 @@ def fit(spec: ZooSpec, graph, labels=None, *,
     """
     from repro_torch.runtime import api
 
-    if mesh is not None:
-        raise NotImplementedError(
-            f"data-parallel (mesh) training is not ported yet: {_MESH}")
     if hasattr(graph, "profile"):
         if labels is None:
             labels = graph.labels
@@ -413,6 +462,7 @@ def fit(spec: ZooSpec, graph, labels=None, *,
                          "GraphData)")
 
     exe = api.compile(spec, graph, device=device, backend=backend,
+                      mesh=mesh, partition=partition, hub_cache=hub_cache,
                       max_shard_n=max_shard_n, params=params, seed=seed,
                       store=store, plan=plan, tune_budget=tune_budget)
     opt_cfg = opt or AdamWConfig(

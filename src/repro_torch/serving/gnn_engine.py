@@ -16,6 +16,12 @@ caches sit under it:
     on that pair is a host-side gather. Invalidate with
     :meth:`GNNServeEngine.invalidate` after a weight swap.
 
+``mesh=`` (a ``(data, model)`` mesh from
+:func:`repro_torch.launch.mesh.make_mesh_for`) makes every compiled unit
+a sharded Executable (:mod:`repro_torch.dist.gnn`) computing the same
+full-graph logits across the mesh (``launch/serve.py --mesh N``); only
+the archs the sharded program supports are admitted.
+
 ``streaming=True`` serves a live graph: builds go through
 :class:`~repro_torch.graphs.patch.PatchState` (slack-slot edge capacity),
 and :meth:`GNNServeEngine.mutate` (driven by ``Server.mutate``) applies a
@@ -46,6 +52,7 @@ from repro_torch.gnn.models import (ZooSpec, graph_signature, init_params,
 from repro_torch.graphs.datasets import GraphData
 from repro_torch.graphs.delta import (affected_nodes, apply_to_graph_data,
                                       seed_nodes, touched_nodes)
+from repro_torch.graphs.patch import pair_rows
 from repro_torch.runtime.executable import validate_params_like
 
 
@@ -88,21 +95,35 @@ class GNNServeEngine:
     compile; winners are memoized through ``REPRO_PLAN_CACHE``).
     ``streaming`` builds mutable graphs with ``edge_slack`` slack
     capacity; ``invalidation`` is ``"targeted"`` (drop the delta's k-hop
-    affected softmax rows) or ``"full"`` (flush per mutate)."""
+    affected softmax rows) or ``"full"`` (flush per mutate). ``mesh``
+    compiles sharded Executables on that mesh (and its device, unless
+    ``device`` names it), with ``partition`` (``"contiguous"`` or
+    ``"fennel"``) and ``hub_cache``; a mesh cannot be autotuned."""
 
     def __init__(self, *, device: torch.device | str | None = None,
                  max_graph_entries: int = 8, max_shard_n: int = 1024,
                  max_dense_gib: float = 8.0, backend: str | None = None,
-                 plan: str = "analytic", tune_budget: int = 16,
-                 streaming: bool = False, edge_slack: float = 0.25,
-                 invalidation: str = "targeted"):
+                 mesh=None, partition: str = "contiguous",
+                 hub_cache: int = 256, plan: str = "analytic",
+                 tune_budget: int = 16, streaming: bool = False,
+                 edge_slack: float = 0.25, invalidation: str = "targeted"):
         if plan not in ("analytic", "autotune"):
             raise ValueError(f"plan must be 'analytic' or 'autotune', "
                              f"got {plan!r}")
+        if partition not in ("contiguous", "fennel"):
+            raise ValueError(f"partition must be 'contiguous' or 'fennel', "
+                             f"got {partition!r}")
         if invalidation not in ("targeted", "full"):
             raise ValueError(f"invalidation must be 'targeted' or 'full', "
                              f"got {invalidation!r}")
-        self.device = runtime.resolve_device(device)
+        if plan == "autotune" and mesh is not None:
+            raise ValueError("plan='autotune' cannot tune sharded (mesh=) "
+                             "execution; use plan='analytic' with mesh")
+        self.device = runtime.resolve_device(
+            mesh.device if device is None and mesh is not None else device)
+        self.mesh = mesh
+        self.partition = partition
+        self.hub_cache = hub_cache
         # registries + compiled units: mutated by register_*,
         # reload_params and mutate, which the Server serializes with
         # engine steps (Server.reload / Server.mutate hold its step lock)
@@ -297,8 +318,15 @@ class GNNServeEngine:
                                        data.profile.num_nodes)
             try:
                 rows = exe.cached_rows
+                # the placement re-score hint for fennel-partitioned
+                # sharded units: the patch's affected shard rows/cols
+                # (available under invalidation="full" too); plain
+                # executables ignore it
+                refine = pair_rows(res.pairs, exe.gt.n,
+                                   data.profile.num_nodes)
                 n_inv = exe.update_graph(entry.gt, entry.h_grouped,
-                                         stale_nodes=stale)
+                                         stale_nodes=stale,
+                                         refine_nodes=refine)
                 exe.graph_version = new_v
             except ValueError:
                 # compaction changed the template: drop + recompile lazily
@@ -363,7 +391,8 @@ class GNNServeEngine:
                 ent.spec, self._graphs[graph], device=self.device,
                 params=ent.params, backend=self.backend,
                 max_shard_n=self.max_shard_n, store=self._store,
-                graph_key=graph, plan=self.plan_source,
+                graph_key=graph, mesh=self.mesh, partition=self.partition,
+                hub_cache=self.hub_cache, plan=self.plan_source,
                 tune_budget=self.tune_budget,
                 graph_version=self._graph_versions.get(graph, 0),
                 mutable_graph=self.streaming, edge_slack=self.edge_slack)
@@ -386,6 +415,16 @@ class GNNServeEngine:
             raise KeyError(f"unknown model {req.model!r}")
         if req.graph not in self._graphs:
             raise KeyError(f"unknown graph {req.graph!r}")
+        if self.mesh is not None:
+            # reject here (a typed Rejected on the ticket) rather than
+            # letting the compile raise inside step(), which would fail
+            # every request co-batched on the stream
+            from repro_torch.dist.gnn import SUPPORTED_ARCHS
+            arch = self._models[req.model].spec.arch
+            if arch not in SUPPORTED_ARCHS:
+                raise NotImplementedError(
+                    f"model {req.model!r} ({arch}) cannot run on a mesh: "
+                    f"sharded execution supports {SUPPORTED_ARCHS}")
         ids = np.asarray(req.node_ids, dtype=np.int64)
         n_nodes = self._graphs[req.graph].profile.num_nodes
         if ids.size and (ids.min() < 0 or ids.max() >= n_nodes):

@@ -89,18 +89,25 @@ def test_deeper_model_matches_reference(graph):
 def test_unported_archs_raise(graph, arch):
     """gin and gat were the unported archs; both run now (their forwards
     are held to the reference here and in tests/test_torch_gin_gat.py),
-    and so does training them with an autotuned plan. What the port
-    still lacks for them, as for every arch, raises NotImplementedError
-    naming its ROADMAP item: data-parallel (mesh) training."""
+    and so does training them with an autotuned plan. On a mesh, as in
+    the reference, gin trains and gat raises NotImplementedError: the
+    sharded program supports the linear-aggregation archs only."""
     from repro_torch import runtime
+    from repro_torch.launch.mesh import make_mesh_for
 
     out, exp, _ = _run_both(graph, arch)
     np.testing.assert_allclose(out.numpy(), exp, **TOL)
     prof = graph.profile
     spec = ZooSpec(arch, prof.feature_dim, 16, prof.num_classes)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runtime.fit(spec, graph, steps=1, device="cpu", mesh=(2, 1),
-                    log=lambda s: None)
+    mesh = make_mesh_for(2, model_parallel=1, device="cpu")
+    if arch == "gat":
+        with pytest.raises(NotImplementedError, match="sharded execution"):
+            runtime.fit(spec, graph, steps=1, device="cpu", mesh=mesh,
+                        log=lambda s: None)
+    else:
+        res = runtime.fit(spec, graph, steps=1, device="cpu", mesh=mesh,
+                          log=lambda s: None)
+        assert res.executable.mesh is mesh and len(res.history) == 1
     res = runtime.fit(spec, graph, steps=1, device="cpu", plan="autotune",
                       tune_budget=2, log=lambda s: None)
     assert res.executable.plan_source == "autotune"

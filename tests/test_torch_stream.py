@@ -870,9 +870,12 @@ def test_stream_launcher_runs_on_the_cpu(capsys):
     assert out["trainer_stats"]["rounds"] == 2
     assert out["engine_stats"]["mutations"] == 6
     assert "[stream] OK" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        stream.run(stream.parser().parse_args(["--device", "cpu",
-                                               "--mesh", "8"]))
+    # on a mesh (data 2 x model 2 on the CPU) the same run serves sharded
+    out = stream.run(stream.parser().parse_args(
+        ["--device", "cpu", "--scale", "0.1", "--shard-n", "64",
+         "--mutations", "2", "--finetune-every", "2", "--steps", "1",
+         "--requests-per-mutation", "1", "--mesh", "4"]))
+    assert out["ok"] and out["served"] == out["submitted"] == 2
 
 
 def test_stream_launcher_defaults_to_cuda(monkeypatch):

@@ -532,9 +532,11 @@ def test_unported_training_paths_raise(tiny_cora):
                    tiny_cora.profile.num_classes)
     res = runtime.fit(spec, tiny_cora, steps=1, batch_nodes=8, fanout=(2,),
                       device="cpu", **QUIET)
+    # the collective accounting is ported; like the reference's, it needs
+    # a mesh-compiled trainable (tests/test_torch_dist_train.py)
     for call in (res.trainable.train_comm_stats,
                  res.trainable.verify_train_comm):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="mesh"):
             call()
     # update_sampler is ported (the streaming fine-tune): it refuses a
     # sampler of another template instead
