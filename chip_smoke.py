@@ -101,6 +101,27 @@ KV cache and a few GB of plain-attention scratch. In order:
    partition's host ms, mutate times, the phase's wall time and peak
    device memory. Eight ranks run their kernels in turn on the one card:
    the times say nothing about scaling;
+4g. GNN analyze phase, full-scale Pubmed (its own engines, freed before
+   the LM phases): ``repro_torch.analyze`` through the kernels. The main
+   path: each of the five archs compiled ``mutable_graph=True`` with
+   ``analyze="error"``, then ``analyze_executable(exe, probe=True,
+   graph=ds)`` (the dtype recorder's forward, two more forwards, a
+   delete-and-reinsert delta pair through ``update_graph``, five node
+   batches) with no error finding; the probe's kernel launches equal its
+   forwards x ``FORWARD_LAUNCHES`` exactly and its index builds are at
+   most one of each kind per ``GraphTensors`` it ran on. Three negative
+   controls must fire: DT001 on a forward that calls ``.double()``
+   outside ``allow_f64``, RT003 on a frozen (``mutable_graph=False``) gcn
+   given an insert into its fullest shard pair, LS001 on two sanitized
+   locks taken in both orders. Then, under ``lock_sanitizer.sanitize()``:
+   a streaming ``GNNServeEngine`` with the five archs, each served once,
+   ``Server.start(analyze="error")``, one more request per arch, 10
+   deltas through ``Server.mutate`` with requests in flight; every
+   request completes and no LS001 (each LS002 is printed with its hold).
+   Last, ``launch.analyze.main(["--fail-on", "error", "--backend",
+   "cuda"])`` returns 0. Printed: findings by rule and pass, the probes'
+   ``timings_ms``, the dtype recorder's forward beside the plain one,
+   the phase's wall time and peak device memory;
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -120,8 +141,8 @@ KV cache and a few GB of plain-attention scratch. In order:
    one prefill and one decode step are traced with ``torch.profiler``
    (kernel time, launches, idle share);
 7. summary: a ``kernels`` JSON line (each row with its launches in the
-   serve run, a train step, the stream run, the tuned serve run and the
-   mesh serve run),
+   serve run, a train step, the stream run, the tuned serve run, the
+   mesh serve run and the analyze phase's probes),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -1780,6 +1801,200 @@ def _mesh_stream(dev, card: str, mesh, spec) -> None:
         torch.cuda.empty_cache()
 
 
+def analyze_phase(dev, card: str) -> dict:
+    """The analysis passes on the card at full-scale Pubmed (see the
+    module docstring, 4g). Returns the kernel launches of its main path,
+    the five archs' probes."""
+    import importlib
+    import threading
+
+    from repro_torch import runtime
+    from repro_torch.analyze import (analyze_executable, lock_sanitizer,
+                                     op_lint)
+    from repro_torch.gnn.models import ZooSpec, graph_signature
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.graphs.patch import PatchState, fullest_pair_insert
+    from repro_torch.kernels import _lib, csr
+    from repro_torch.launch import analyze as analyze_cli
+    from repro_torch.serving import Completed, SchedulerConfig, Server
+    from repro_torch.serving.gnn_engine import GNNServeEngine, NodeRequest
+    from repro_torch.stream import random_delta
+
+    fwd = importlib.import_module("repro_torch.runtime.forward")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ds = make_dataset("pubmed", seed=0)
+    prof = ds.profile
+    specs = {a: ZooSpec(a, prof.feature_dim, 16, prof.num_classes,
+                        num_layers=2, heads=2) for a in ARCHS}
+    rules, passes, timings, reports = {}, {}, {}, []
+    launches = dict.fromkeys(_lib.KERNELS, 0)
+
+    # the main path: each arch compiled with analyze="error", then probed
+    # (forwards, node batches, two mutation deltas) through the kernels
+    store = runtime.GraphStore()
+    gts: list = []
+    real_forward = fwd.forward
+
+    def counted(spec, params, gt, h, **kw):
+        gts.append(gt)
+        return real_forward(spec, params, gt, h, **kw)
+
+    exes = {}
+    for arch, spec in specs.items():
+        exe, compile_ms = _synced(lambda: runtime.compile(
+            spec, ds, device=dev, backend="cuda", max_shard_n=512,
+            mutable_graph=True, store=store, analyze="error"))
+        exes[arch] = exe
+        reports.append(exe.analysis)
+        gts.clear()
+        fwd.forward = counted
+        try:
+            torch.cuda.synchronize()
+            _lib.reset_launches()
+            csr.reset_index_builds()
+            rep, probe_ms = _synced(
+                lambda: analyze_executable(exe, probe=True, graph=ds))
+            got = {k: v for k, v in _lib.launches().items() if v}
+            builds = csr.index_builds()
+        finally:
+            fwd.forward = real_forward
+        reports.append(rep)
+        if rep.failed("error"):
+            raise RuntimeError(f"analyze {arch}: {rep.render()}")
+        forwards, graphs = len(gts), len({id(g) for g in gts})
+        gts.clear()
+        want = {k: v * forwards for k, v in FORWARD_LAUNCHES[arch].items()}
+        if got != want:
+            raise RuntimeError(f"analyze {arch}: the probe's {forwards} "
+                               f"forwards launched {got}, expected {want}")
+        if any(v > graphs for v in builds.values()):
+            raise RuntimeError(f"analyze {arch}: {builds} index builds for "
+                               f"{graphs} GraphTensors")
+        for k, v in got.items():
+            launches[k] += v
+        for name, ms in rep.timings_ms.items():
+            timings.setdefault(name, []).append(ms)
+        plain_ms = float(np.median([_synced(exe.forward)[1]
+                                    for _ in range(5)]))
+        with torch.inference_mode():
+            _, mode_ms = _synced(lambda: op_lint.dtype_findings(
+                exe._forward_fn(), (exe.params, exe._h_grouped), name=arch))
+        print(f"analyze {arch} ({card}): compile(analyze='error') "
+              f"{compile_ms:.1f} ms; probe {probe_ms:.1f} ms, "
+              f"{forwards} forwards on {graphs} graphs, launches {got}, "
+              f"index builds {builds}; findings "
+              f"{[f.rule for f in rep.findings] or 'none'}; forward under "
+              f"the dtype recorder {mode_ms:.3f} ms vs plain "
+              f"{plain_ms:.3f} ms (median of 5) (host clock, synchronized)")
+
+    # negative controls: each must fire
+    gcn = exes["gcn"]
+    wide = op_lint.dtype_findings(
+        lambda p, h: gcn._forward_fn()(p, h.double().float()),
+        (gcn.params, gcn._h_grouped), name="gcn[.double()]")
+    if "DT001" not in {f.rule for f in wide}:
+        raise RuntimeError(f"DT001 did not fire on a .double() forward: "
+                           f"{wide}")
+    del exes, gcn
+    store.evict()
+    frozen = runtime.compile(specs["gcn"], ds, device=dev, backend="cuda",
+                             max_shard_n=512, store=runtime.GraphStore())
+    norm, loops = graph_signature("gcn")
+    ps = PatchState(ds.edges, prof.num_nodes, frozen.gt.n, normalize=norm,
+                    add_self_loops=loops,
+                    edge_capacity=int(frozen.gt.edge_src.shape[-1]))
+    grow = op_lint.check_mutation_stability(
+        frozen, ds.edges, prof.num_nodes, [fullest_pair_insert(ps)],
+        name="Executable[gcn,frozen]")
+    if [f.rule for f in grow] != ["RT003"]:
+        raise RuntimeError(f"RT003 did not fire on a frozen template: "
+                           f"{grow}")
+    del frozen, ps
+    with lock_sanitizer.sanitize() as san:
+        a, b = lock_sanitizer.new_lock("A"), lock_sanitizer.new_lock("B")
+        for first, second in ((a, b), (b, a)):
+            def take(first=first, second=second):
+                with first:
+                    with second:
+                        pass
+            t = threading.Thread(target=take)
+            t.start()
+            t.join()
+    if [f.rule for f in san.findings()] != ["LS001"]:
+        raise RuntimeError(f"LS001 did not fire: {san.findings()}")
+    print(f"analyze negative controls ({card}): DT001 "
+          f"{sum(f.rule == 'DT001' for f in wide)}, RT003 {len(grow)}, "
+          f"LS001 1 — each fired")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Server preflight, then a streaming loop, all under the sanitizer
+    live = make_dataset("pubmed", seed=0)
+    rng = np.random.default_rng(0)
+
+    def request(arch):
+        return NodeRequest("pubmed", rng.integers(0, prof.num_nodes, size=8),
+                           model=arch)
+
+    with lock_sanitizer.sanitize() as san:
+        engine = GNNServeEngine(device=dev, backend="cuda", max_shard_n=512,
+                                streaming=True)
+        engine.register_graph("pubmed", live)
+        for arch, spec in specs.items():
+            engine.register_model(arch, spec, seed=0)
+        server = Server(engine, SchedulerConfig(max_batch_size=4))
+        tickets = [server.submit(request(a)) for a in ARCHS]
+        server.drain()
+        _, start_ms = _synced(lambda: server.start(analyze="error"))
+        tickets += [server.submit(request(a)) for a in ARCHS]
+        mutate_ms = []
+        for _ in range(10):
+            tickets += [server.submit(request(a)) for a in ARCHS]
+            _, ms = _synced(lambda: server.mutate(
+                "pubmed", random_delta(live, rng, edge_ops=8)))
+            mutate_ms.append(ms)
+        outcomes = [t.result(timeout_s=300.0) for t in tickets]
+        server.stop()
+    bad = [o for o in outcomes if not isinstance(o, Completed)]
+    if bad:
+        raise RuntimeError(f"analyze serve: {len(bad)} of {len(outcomes)} "
+                           f"requests did not complete: {bad[:3]}")
+    lock = san.findings()
+    if any(f.rule == "LS001" for f in lock):
+        raise RuntimeError(f"lock sanitizer: {san.report().render()}")
+    print(f"analyze serve ({card}): Server.start(analyze='error') "
+          f"{start_ms:.1f} ms (preflight over {len(ARCHS)} executables); "
+          f"{len(outcomes)} requests completed; 10 deltas through "
+          f"Server.mutate, median {float(np.median(mutate_ms)):.1f} ms; "
+          f"lock sanitizer {san.acquisitions} acquisitions, no LS001")
+    for f in lock:
+        print(f"analyze lock sanitizer: {f.rule} {f.location}: {f.message}")
+    del engine, server, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI gate on the card
+    rc, cli_ms = _synced(lambda: analyze_cli.main(
+        ["--fail-on", "error", "--backend", "cuda"]))
+    if rc != 0:
+        raise RuntimeError(f"launch.analyze --backend cuda exited {rc}")
+    for f in (f for rep in reports for f in rep.findings):
+        rules[f.rule] = rules.get(f.rule, 0) + 1
+        passes[f.pass_name] = passes.get(f.pass_name, 0) + 1
+    print(f"analyze findings ({card}): by rule {rules or 'none'}, by pass "
+          f"{passes or 'none'}; timings_ms per pass (the five probes) "
+          f"{ {k: [round(x, 1) for x in v] for k, v in timings.items()} }; "
+          f"CLI gate {cli_ms:.0f} ms, exit 0")
+    torch.cuda.synchronize()
+    print(f"analyze phase wall time ({card}): "
+          f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _attention_pairs(sq: int, skv: int) -> int:
     """(q, k) pairs a causal mask keeps: row i sees keys 0 .. Skv - Sq + i."""
     seen = np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv)
@@ -2098,6 +2313,7 @@ def main() -> None:
     stream_launches = stream_phase(dev, card, max_shard_n)
     tune_launches = tune_phase(dev, card)
     mesh_launches = mesh_phase(dev, card, kernels)
+    analyze_launches = analyze_phase(dev, card)
 
     attention_kernel_phase(torch.device("cuda"), kernels)
     kernels["flash_attention"]["launches"] = lm_serve_phase(card)
@@ -2106,6 +2322,7 @@ def main() -> None:
         row["stream_launches"] = stream_launches.get(name, 0)
         row["tune_launches"] = tune_launches.get(name, 0)
         row["mesh_launches"] = mesh_launches.get(name, 0)
+        row["analyze_launches"] = analyze_launches.get(name, 0)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

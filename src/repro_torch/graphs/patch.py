@@ -372,3 +372,16 @@ class PatchState:
             "per-shard counts drifted"
         assert np.array_equal(self.deg_in, sg.degrees), \
             "in-degrees drifted"
+
+
+def fullest_pair_insert(ps: PatchState) -> GraphDelta:
+    """A GraphDelta inserting one new edge into the shard pair with the
+    least headroom: the first insert an unpadded (slack 0) template
+    cannot absorb."""
+    i, j = np.unravel_index(np.argmax(ps.counts), ps.counts.shape)
+    have = {(int(u), int(v)) for u, v in ps.edges}
+    for u in range(j * ps.n, min((j + 1) * ps.n, ps.num_nodes)):
+        for v in range(i * ps.n, min((i + 1) * ps.n, ps.num_nodes)):
+            if u != v and (u, v) not in have:
+                return GraphDelta(add_edges=np.array([[u, v]]))
+    raise ValueError("the fullest shard pair is completely dense")

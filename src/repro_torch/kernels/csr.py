@@ -13,14 +13,41 @@ graph by ``core.engines.GraphTensors`` and kept:
 In both, global destination row r = i·n + v and global source row
 j·n + u; a row's entries keep the order in which the TPU kernels visit
 them (source shard j first).
+
+Each build is counted by kind (:func:`index_builds`), as the kernel
+library counts its launches: an index is the first-use work a request
+pays, and the build-stability pass
+(:mod:`repro_torch.analyze.op_lint`) holds a warm path to building none.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
 from repro_torch.kernels import _lib
+
+_lock = threading.Lock()
+_builds = {"gather": 0, "linear": 0}
+
+
+def _count(kind: str) -> None:
+    with _lock:
+        _builds[kind] += 1
+
+
+def index_builds() -> dict[str, int]:
+    """Index builds by kind (``gather``, ``linear``) counted since the
+    last :func:`reset_index_builds`."""
+    with _lock:
+        return dict(_builds)
+
+
+def reset_index_builds() -> None:
+    with _lock:
+        for k in _builds:
+            _builds[k] = 0
 
 
 def _row_ptr(dst: torch.Tensor, rows: int) -> torch.Tensor:
@@ -55,6 +82,7 @@ def gather_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     src = (jj * n + u)[keep]
     dst = (ii * n + v)[keep]
     dst, order = torch.sort(dst, stable=True)
+    _count("gather")
     return GatherIndex(row_ptr=_row_ptr(dst, s_dst * n),
                        src=src[order].to(torch.int32))
 
@@ -90,6 +118,7 @@ def linear_index(blocks: torch.Tensor) -> LinearIndex:
     dst, order = torch.sort(ii * n + vv, stable=True)
     row_ptr = _row_ptr(dst, s_dst * n)
     hubs = ((row_ptr[1:] - row_ptr[:-1]) > HUB_ENTRIES).nonzero()
+    _count("linear")
     return LinearIndex(row_ptr=row_ptr,
                        col=(jj * n + uu)[order].to(torch.int32),
                        val=val[order].contiguous(),

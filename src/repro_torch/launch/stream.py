@@ -22,9 +22,15 @@ On the CPU (the kernels' plain versions; keep ``--scale`` small)::
 ``--mesh N --model-parallel M`` serves sharded Executables on a (data,
 model) mesh of N ranks in this process (gcn, sage_mean, gin; the
 contiguous placement); the StreamTrainer fine-tunes its own
-single-device mini-batch unit and reloads the weights into them. Not
-ported yet: the reference's lock sanitizer (``REPRO_LOCKSAN``, ROADMAP.md
-Queue 1 item 6).
+single-device mini-batch unit and reloads the weights into them.
+
+``REPRO_LOCKSAN=1`` instruments every lock the stack creates
+(:mod:`repro_torch.analyze.lock_sanitizer`): an acquisition-order cycle
+(LS001) fails the run, long holds (LS002, threshold
+``REPRO_LOCKSAN_HOLD_MS``) are reported::
+
+    REPRO_LOCKSAN=1 PYTHONPATH=src python -m repro_torch.launch.stream \
+        --device cpu --scale 0.1 --steps 4 --mutations 10 --finetune-every 5
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 
 
 def run(args) -> dict:
+    from repro_torch.analyze import lock_sanitizer
     from repro_torch.gnn.models import ZooSpec
     from repro_torch.graphs.datasets import make_dataset
     from repro_torch.runtime.api import resolve_device
@@ -43,6 +50,12 @@ def run(args) -> dict:
     from repro_torch.stream import StreamTrainer, random_delta
 
     device = resolve_device(args.device)
+    # REPRO_LOCKSAN=1 instruments every lock the stack creates below:
+    # the streaming loop doubles as the sanitizer's workload
+    san = lock_sanitizer.current()
+    if san is not None:
+        print(f"[stream] lock sanitizer active "
+              f"(hold threshold {san.hold_ms:.0f} ms)")
     mesh = None
     if args.mesh:
         from repro_torch.launch.mesh import mesh_from_cli
@@ -119,10 +132,22 @@ def run(args) -> dict:
         print(f"[stream] WARNING: the trainer rebuilt "
               f"{trainer.stats['rebuilds']}x with no compaction")
         ok = False
+    lock_findings = []
+    if san is not None:
+        rep = san.report()
+        lock_findings = [f.to_json() for f in rep.findings]
+        if rep.findings:
+            print(f"[stream] lock sanitizer:\n{rep.render()}")
+        else:
+            print(f"[stream] lock sanitizer: clean "
+                  f"({san.acquisitions} acquisitions)")
+        if rep.failed("error"):   # LS001 order cycle = deadlock hazard
+            ok = False
     print(f"[stream] {'OK' if ok else 'FAILED'}")
     return {"ok": ok, "served": served, "submitted": len(tickets),
             "final_train_acc": final_acc, "engine_stats": dict(s),
-            "trainer_stats": dict(trainer.stats), "wall_s": wall_s}
+            "trainer_stats": dict(trainer.stats), "wall_s": wall_s,
+            "lock_findings": lock_findings}
 
 
 def parser() -> argparse.ArgumentParser:

@@ -7,7 +7,9 @@ fastest (``plan="autotune"``, :mod:`repro_torch.tune`) — the graph is
 sharded + normalization-baked once per signature (shared through a
 GraphStore), and parameters are initialized (or adopted) on the device,
 pinned with one kernel backend. With ``mesh=`` the compiled unit is a
-:class:`~repro_torch.dist.gnn.ShardedExecutable` on that mesh.
+:class:`~repro_torch.dist.gnn.ShardedExecutable` on that mesh. With
+``analyze=`` the compile-time analysis passes
+(:func:`repro_torch.analyze.analyze_executable`) run over the result.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.core.perf_model import GNNERATOR, Platform
 from repro_torch.gnn.executor import plan_model
 from repro_torch.gnn.models import ZooSpec, init_params, params_from_numpy
 from repro_torch.kernels import registry
-from repro_torch.runtime.cache import GraphStore
+from repro_torch.runtime.cache import GraphStore, count
 from repro_torch.runtime.executable import Executable
 
 
@@ -97,7 +99,8 @@ def compile(spec: ZooSpec, graph, *,
             plan_cache_dir=None,
             mesh=None,
             partition: str = "contiguous",
-            hub_cache: int = 256) -> Executable:
+            hub_cache: int = 256,
+            analyze: str | None = None) -> Executable:
     """Plan, shard and place one zoo model for one graph.
 
     Args:
@@ -152,10 +155,21 @@ def compile(spec: ZooSpec, graph, *,
         replicated ``hub_cache``-vertex hub cache (ignored without a
         mesh). Mutable graphs get ``edge_slack`` headroom on fennel's
         send capacities, so streaming deltas re-partition in template.
+      analyze: run the compile-time analysis passes
+        (:func:`repro_torch.analyze.analyze_executable` — build
+        stability, dtype, plan legality, the comm contract on a mesh)
+        over the compiled result. ``None``/``"off"`` skips; ``"warn"``
+        attaches the report as ``exe.analysis`` and issues a
+        ``UserWarning`` for warning-or-worse findings; ``"error"``
+        additionally raises :class:`repro_torch.analyze.AnalysisError`
+        on any error finding.
     """
     if plan not in ("analytic", "autotune"):
         raise ValueError(f"plan must be 'analytic' or 'autotune', "
                          f"got {plan!r}")
+    if analyze not in (None, "off", "warn", "error"):
+        raise ValueError(f"analyze must be None, 'off', 'warn' or "
+                         f"'error', got {analyze!r}")
     if partition not in ("contiguous", "fennel"):
         raise ValueError(f"partition must be 'contiguous' or 'fennel', "
                          f"got {partition!r}")
@@ -171,6 +185,7 @@ def compile(spec: ZooSpec, graph, *,
             raise ValueError(f"device {device} is not the mesh's device "
                              f"{mesh.device}")
     dev = resolve_device(device)
+    count("compiles")
     edges, num_nodes, features = _as_graph(graph)
     be = registry.resolve(backend)
     if graph_version is None:
@@ -225,4 +240,16 @@ def compile(spec: ZooSpec, graph, *,
     else:
         exe = Executable(**kw)
     exe.graph_version = graph_version
+
+    if analyze in ("warn", "error"):
+        from repro_torch import analyze as _analyze
+        report = _analyze.analyze_executable(exe)
+        exe.analysis = report
+        if analyze == "error" and report.failed("error"):
+            raise _analyze.AnalysisError(report)
+        if report.at_least("warning"):
+            import warnings
+            warnings.warn(f"static analysis of the compiled "
+                          f"{spec.arch} executable:\n{report.render()}",
+                          stacklevel=2)
     return exe

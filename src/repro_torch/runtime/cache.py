@@ -15,6 +15,12 @@ Mutable entries (``get(..., mutable=True)``) are built through
 capacity; :meth:`GraphStore.patch` then advances them — incremental
 shard rewrite of the host mirror, a copy-on-write device update and a
 re-key to the new version — instead of a from-scratch rebuild.
+
+Compiles (:func:`repro_torch.runtime.compile` calls) and graph builds
+(misses of any store) are counted (:func:`compile_counts`), as the
+kernel library counts its launches: they are the first-use work a
+request pays, and the build-stability pass
+(:mod:`repro_torch.analyze.op_lint`) holds a warm path to none.
 """
 from __future__ import annotations
 
@@ -26,10 +32,27 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.analyze.lock_sanitizer import new_rlock
 from repro_torch.core.engines import GraphTensors
 from repro_torch.gnn.models import graph_signature
 from repro_torch.graphs.delta import apply_to_edge_list
 from repro_torch.graphs.patch import PatchState
+
+
+_count_lock = threading.Lock()
+_counts = {"compiles": 0, "graph_builds": 0}
+
+
+def count(kind: str) -> None:
+    """Add one to the ``compiles`` or ``graph_builds`` counter."""
+    with _count_lock:
+        _counts[kind] += 1
+
+
+def compile_counts() -> dict[str, int]:
+    """Compiles and graph builds counted since the process started."""
+    with _count_lock:
+        return dict(_counts)
 
 
 @dataclasses.dataclass
@@ -56,10 +79,10 @@ class GraphStore:
         # shared by the serving engine's step and mutate paths, direct
         # compiles and the stream trainer: one reentrant lock makes
         # fetch-or-build and a whole patch atomic
-        self._lock = threading.RLock()
-        self._entries: OrderedDict[tuple, GraphEntry] = OrderedDict()
+        self._lock = new_rlock("GraphStore._lock")
+        self._entries: OrderedDict[tuple, GraphEntry] = OrderedDict()  # guarded-by: _lock
         self.max_entries = max_entries
-        self.stats = {"hits": 0, "misses": 0, "evictions": 0,
+        self.stats = {"hits": 0, "misses": 0, "evictions": 0,  # guarded-by: _lock
                       "built_ms_total": 0.0, "patches": 0,
                       "patch_rebuilds": 0, "patch_drops": 0,
                       "patch_ms_total": 0.0}
@@ -91,6 +114,7 @@ class GraphStore:
                 self._entries.move_to_end(key)
             else:
                 self.stats["misses"] += 1
+                count("graph_builds")
                 t0 = time.perf_counter()
                 if mutable:
                     ps = PatchState(edges, num_nodes, shard_n,

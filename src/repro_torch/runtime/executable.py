@@ -42,20 +42,27 @@ def _softmax(x: np.ndarray) -> np.ndarray:
     return e / e.sum(axis=-1, keepdims=True)
 
 
-def _flatten_params(tree, prefix="", out=None) -> dict:
-    """{"layers": [{"w": t}]} -> {"layers/0/w": array} (numpy leaves)."""
+def _leaves(tree, prefix="", out=None) -> dict:
+    """{"layers": [{"w": t}]} -> {"layers/0/w": t} (leaves as they are)."""
     if out is None:
         out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
-            _flatten_params(v, f"{prefix}{k}/", out)
+            _leaves(v, f"{prefix}{k}/", out)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            _flatten_params(v, f"{prefix}{i}/", out)
+            _leaves(v, f"{prefix}{i}/", out)
     else:
-        out[prefix[:-1]] = tree.detach().cpu().numpy() \
-            if isinstance(tree, torch.Tensor) else np.asarray(tree)
+        out[prefix[:-1]] = tree
     return out
+
+
+def _flatten_params(tree) -> dict:
+    """{"layers": [{"w": t}]} -> {"layers/0/w": array}: numpy copies on
+    the host, for writing a checkpoint."""
+    return {k: v.detach().cpu().numpy()  # analyze: allow(host-sync)
+            if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in _leaves(tree).items()}
 
 
 def _unflatten_params(flat: dict):
@@ -82,14 +89,15 @@ def _unflatten_params(flat: dict):
 def validate_params_like(old, new) -> None:
     """Raise ValueError unless ``new`` has the same tree structure and
     leaf shapes as ``old`` — the hot-reload contract."""
-    old_flat, new_flat = _flatten_params(old), _flatten_params(new)
+    old_flat, new_flat = _leaves(old), _leaves(new)
     if old_flat.keys() != new_flat.keys():
         raise ValueError(f"param tree mismatch: compiled "
                          f"{sorted(old_flat)}, got {sorted(new_flat)}")
     for k, o in old_flat.items():
-        if o.shape != new_flat[k].shape:
+        o_shape, n_shape = tuple(np.shape(o)), tuple(np.shape(new_flat[k]))
+        if o_shape != n_shape:
             raise ValueError(f"param {k} shape mismatch: compiled "
-                             f"{o.shape}, got {new_flat[k].shape}")
+                             f"{o_shape}, got {n_shape}")
 
 
 class Executable:
@@ -115,6 +123,8 @@ class Executable:
         # monotonic version of the graph this Executable serves (set by
         # runtime.compile, advanced by the serving engine's mutate path)
         self.graph_version = 0
+        # the analysis Report, set by runtime.compile(analyze=...)
+        self.analysis = None
         self._h_grouped = h_grouped
         self._probs: np.ndarray | None = None
         # per-row staleness of the cached softmax under targeted graph
@@ -183,8 +193,8 @@ class Executable:
         computed once per parameter set, then every node-batch request
         is a numpy gather."""
         if self._probs is None:
-            logits = self.forward().cpu().numpy().astype(np.float32)
-            self._probs = _softmax(logits)
+            host = self.forward().cpu().numpy()  # analyze: allow(host-sync)
+            self._probs = _softmax(host.astype(np.float32))
             self._stale = None      # one full recompute clears staleness
         return self._probs
 
@@ -323,8 +333,8 @@ class Executable:
     # -- introspection / serialization ------------------------------------
 
     def summary(self) -> str:
-        n_params = sum(int(v.size)
-                       for v in _flatten_params(self.params).values())
+        n_params = sum(int(np.prod(np.shape(v)))
+                       for v in _leaves(self.params).values())
         lines = [f"Executable[{self.spec.arch}] backend={self.backend.name} "
                  f"device={self.device} plan={self.plan_source} "
                  f"params={n_params} grid={self.gt.S}x{self.gt.S} "

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analyze.op_lint import allow_f64
 from repro_torch.core.engines import (DenseEngine, GNNeratorController,
                                       GraphEngine, GraphTensors)
 from repro_torch.core.sharding import shard_graph
@@ -65,9 +66,11 @@ def gat_attention(index: csr.LinearIndex, rows: torch.Tensor,
     Each row's sum is a difference of one float64 prefix sum over the
     row-sorted entries, head after head: on the card a scan adds in one
     order, where ``index_add_``'s atomics would make the forward differ
-    run to run. The scan runs over one flat vector: torch scans each
-    column of a 2-d tensor down its rows in one thread (19.5 ms for
-    gat's two layers at Pubmed on an H100, PERF.md).
+    run to run; the float64 is deliberate, so it runs inside
+    ``allow_f64`` (the dtype pass's DT001 scope). The scan runs over one
+    flat vector: torch scans each column of a 2-d tensor down its rows
+    in one thread (19.5 ms for gat's two layers at Pubmed on an H100,
+    PERF.md).
     s_src/s_dst: (S·n, H) scores. Returns (nnz, H) float32.
     """
     logits = F.leaky_relu(s_dst[rows] + s_src[index.col.long()],
@@ -78,10 +81,12 @@ def gat_attention(index: csr.LinearIndex, rows: torch.Tensor,
                          logits.detach(), reduce="amax", include_self=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
     e = torch.exp(logits - m[rows])                         # (nnz, H)
-    prefix = F.pad(torch.cumsum(e.t().reshape(-1).double(), 0), (1, 0))
     ptr = index.row_ptr.long() + nnz * torch.arange(
         heads, device=e.device)[:, None]                    # (H, rows + 1)
-    denom = (prefix[ptr[:, 1:]] - prefix[ptr[:, :-1]]).float().t()[rows]
+    with allow_f64("gat's row sums: a float64 prefix sum keeps the "
+                   "forward bitwise repeatable on the card"):
+        prefix = F.pad(torch.cumsum(e.t().reshape(-1).double(), 0), (1, 0))
+        denom = (prefix[ptr[:, 1:]] - prefix[ptr[:, :-1]]).float().t()[rows]
     return torch.where(denom > 0, e / denom.clamp_min(1e-30), 0.0)
 
 

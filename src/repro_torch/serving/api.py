@@ -39,6 +39,7 @@ import threading
 import time
 from typing import Any, Hashable, Protocol, Sequence, runtime_checkable
 
+from repro_torch.analyze.lock_sanitizer import new_condition, new_lock
 from repro_torch.serving.scheduler import (MicroBatchScheduler,
                                            QueueEntry, SchedulerConfig)
 
@@ -145,13 +146,15 @@ class Server:
         self._sched = MicroBatchScheduler(config)
         self._clock = clock
         # the queue lock: guards the scheduler, the metrics dict and
-        # ticket resolution
-        self._cv = threading.Condition()
+        # ticket resolution. Built through the lock_sanitizer factory so
+        # REPRO_LOCKSAN runs get acquisition-order checking (a plain
+        # threading.Condition otherwise)
+        self._cv = new_condition("Server._cv")
         # serializes whole step() passes: engines are not required to be
         # thread-safe, so a background thread and an inline step()/drain()
         # caller must never run engine.step concurrently. Lock order is
         # always _step_lock -> _cv (step() -> _step()), never reversed.
-        self._step_lock = threading.Lock()
+        self._step_lock = new_lock("Server._step_lock")
         # background-thread lifecycle: written only by the caller thread that
         # owns start()/stop() (single-writer by contract)
         self._thread: threading.Thread | None = None  # guarded-by: caller
@@ -323,9 +326,38 @@ class Server:
 
     # -- background thread (optional) --------------------------------------
 
-    def start(self, poll_interval_s: float = 0.002) -> "Server":
+    def start(self, poll_interval_s: float = 0.002, *,
+              analyze: str | None = None) -> "Server":
         """Run a daemon thread that steps the server, so ``submit`` is
-        fire-and-forget."""
+        fire-and-forget.
+
+        ``analyze`` runs the static-analysis preflight
+        (:func:`repro_torch.analyze.preflight` — the host-sync and
+        lock-discipline lints over the deployed hot paths plus every
+        pass on each already-compiled Executable) before the thread
+        starts: ``"warn"`` issues a ``UserWarning`` for warning-or-worse
+        findings, ``"error"`` refuses to start (raises
+        :class:`repro_torch.analyze.AnalysisError`) on any error finding
+        — a misconfigured engine should fail at startup, not stall the
+        queue at peak. The preflight holds the step lock, so on a server
+        already started it runs between two steps.
+        """
+        if analyze not in (None, "off", "warn", "error"):
+            raise ValueError(f"analyze must be None, 'off', 'warn' or "
+                             f"'error', got {analyze!r}")
+        if analyze in ("warn", "error"):
+            from repro_torch import analyze as _analyze
+            # The preflight's passes run real forwards over the engine's
+            # executables: hold the step lock so a running driver's
+            # step, a reload or a mutate cannot run beside them.
+            with self._step_lock:
+                report = _analyze.preflight(self._engine)
+            if analyze == "error" and report.failed("error"):
+                raise _analyze.AnalysisError(report)
+            if report.at_least("warning"):
+                import warnings
+                warnings.warn(f"serving preflight analysis:\n"
+                              f"{report.render()}", stacklevel=2)
         if self._thread is None:
             self._stopping = False
             self._thread = threading.Thread(

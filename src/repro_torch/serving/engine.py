@@ -52,7 +52,8 @@ class ServeEngine:
         self.max_len = max_len
         self.backend = backend
         self._step_seed = 0
-        self.stats = {"prefill_batches": 0, "prefill_tokens": 0,
+        # the Server serializes step(), so the counters have one writer
+        self.stats = {"prefill_batches": 0, "prefill_tokens": 0,  # guarded-by: Server._step_lock
                       "prefill_ms_total": 0.0, "decode_steps": 0,
                       "decode_tokens": 0, "decode_ms_total": 0.0}
 
@@ -92,7 +93,7 @@ class ServeEngine:
             self.params, cfg, {"tokens": torch.from_numpy(toks).to(self.device)},
             self.max_len, backend=self.backend)
         cur = self._sample(logits[:, 0], requests, gen)
-        cur_host = cur.cpu().numpy()
+        cur_host = cur.cpu().numpy()  # analyze: allow(host-sync)
         t1 = time.perf_counter()
         self.stats["prefill_batches"] += 1
         self.stats["prefill_tokens"] += b * plen
@@ -111,7 +112,7 @@ class ServeEngine:
                 self.params, cfg, {"tokens": cur[:, None], "pos": plen + step},
                 caches)
             cur = self._sample(logits[:, 0], requests, gen)
-            cur_host = cur.cpu().numpy()
+            cur_host = cur.cpu().numpy()  # analyze: allow(host-sync)
             self.stats["decode_steps"] += 1
             self.stats["decode_tokens"] += b
             self.stats["decode_ms_total"] += (time.perf_counter() - t0) * 1e3

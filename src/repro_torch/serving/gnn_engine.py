@@ -37,7 +37,6 @@ the request that triggered it); compile time accrues to
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from collections import OrderedDict
 from typing import Sequence
@@ -46,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import runtime
+from repro_torch.analyze.lock_sanitizer import new_lock
 from repro_torch.gnn.executor import ModelPlan
 from repro_torch.gnn.models import (ZooSpec, graph_signature, init_params,
                                     params_from_numpy)
@@ -124,13 +124,15 @@ class GNNServeEngine:
         self.mesh = mesh
         self.partition = partition
         self.hub_cache = hub_cache
-        # registries + compiled units: mutated by register_*,
-        # reload_params and mutate, which the Server serializes with
-        # engine steps (Server.reload / Server.mutate hold its step lock)
-        self._graphs: dict[str, GraphData] = {}
-        self._models: dict[str, _ModelEntry] = {}
+        # registries + compiled units: mutated only by register_*,
+        # reload_params and mutate, all of which the Server serializes
+        # with engine steps (Server._step_lock); documented-invariant
+        # attributes, verified by the concurrency pass
+        self._graphs: dict[str, GraphData] = {}       # guarded-by: Server._step_lock
+        self._models: dict[str, _ModelEntry] = {}     # guarded-by: Server._step_lock
         self._store = runtime.GraphStore(max_entries=max_graph_entries)
-        self._executables: dict[tuple[str, str], runtime.Executable] = {}
+        self._executables: dict[tuple[str, str],
+                                runtime.Executable] = {}  # guarded-by: Server._step_lock
         self.max_shard_n = max_shard_n
         self.max_dense_gib = max_dense_gib
         self.backend = backend
@@ -139,13 +141,13 @@ class GNNServeEngine:
         self.streaming = streaming
         self.edge_slack = edge_slack
         self.invalidation = invalidation
-        self._graph_versions: dict[str, int] = {}
+        self._graph_versions: dict[str, int] = {}  # guarded-by: Server._step_lock
         # per-graph accumulated delta-touched node ids, drained by the
         # stream trainer (take_dirty) from its own thread without the
         # step lock: mutate's read-union-write and the pop must not race
-        self._dirty_lock = threading.Lock()
-        self._dirty: dict[str, np.ndarray] = {}
-        self._stats = {
+        self._dirty_lock = new_lock("GNNServeEngine._dirty_lock")
+        self._dirty: dict[str, np.ndarray] = {}  # guarded-by: _dirty_lock
+        self._stats = {  # guarded-by: Server._step_lock (step/reload/mutate serialized)
             "logits_cache_hits": 0, "logits_cache_misses": 0,
             "requests": 0, "batches": 0, "nodes_served": 0,
             "compiles": 0, "compile_ms_total": 0.0,

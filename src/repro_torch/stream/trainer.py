@@ -63,8 +63,10 @@ class StreamTrainer:
         self._trainable: TrainableExecutable | None = None
         self._budget: int | None = None
         self._round = 0
-        # one writer: round() runs on the mutation-driving thread
-        self.stats = {"rounds": 0, "rounds_skipped": 0, "steps": 0,
+        # the trainer is synchronous by contract: round() runs on the
+        # single mutation-driving thread, so its counters have exactly
+        # one writer — documented for the concurrency pass, not locked
+        self.stats = {"rounds": 0, "rounds_skipped": 0, "steps": 0,  # guarded-by: driver
                       "reloads": 0, "rebuilds": 0}
 
     # -- construction ------------------------------------------------------

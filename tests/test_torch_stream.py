@@ -45,6 +45,7 @@ from repro_torch.gnn.models import ARCHS, ZooSpec, graph_signature
 from repro_torch.graphs import (GraphDelta, PatchState, apply_to_graph_data,
                                 delta as tdelta)
 from repro_torch.graphs.datasets import make_dataset
+from repro_torch.graphs.patch import fullest_pair_insert
 from repro_torch.graphs.sampler import NeighborSampler
 from repro_torch.kernels import csr
 from repro_torch.runtime.api import graph_fingerprint
@@ -255,24 +256,12 @@ def test_pair_rows_is_the_reference():
     assert pair_rows(None, 32, ps.num_nodes) is None
 
 
-def _insert_into_fullest_pair(ps) -> GraphDelta:
-    """An edge insert aimed at the shard pair with the least headroom:
-    the first insert a slack=0 template cannot absorb."""
-    i, j = np.unravel_index(np.argmax(ps.counts), ps.counts.shape)
-    have = {(int(u), int(v)) for u, v in ps.edges}
-    for u in range(j * ps.n, min((j + 1) * ps.n, ps.num_nodes)):
-        for v in range(i * ps.n, min((i + 1) * ps.n, ps.num_nodes)):
-            if u != v and (u, v) not in have:
-                return GraphDelta(add_edges=np.array([[u, v]]))
-    raise AssertionError("fullest shard pair is completely dense")
-
-
 def test_patch_compaction_reasons_match_the_reference():
     ds = _ds()
     num = ds.profile.num_nodes
     ps = PatchState(ds.edges, num, 32, slack=0.0)
     jps = JaxPatchState(ds.edges, num, 32, slack=0.0)
-    d = _insert_into_fullest_pair(ps)
+    d = fullest_pair_insert(ps)
     res, jres = ps.apply(d), jps.apply(_as_jax_delta(d))
     assert res.rebuilt and res.reason == "edge-capacity"
     _assert_results_equal(res, jres)

@@ -20,15 +20,8 @@ from repro_torch.runtime.forward import build_graph_tensors
 from repro_torch.serving import Completed, SchedulerConfig, Server
 from repro_torch.serving.gnn_engine import GNNServeEngine, NodeRequest
 from repro_torch.stream import StreamTrainer, random_delta
+from torch_launches import FORWARD_LAUNCHES
 
-# kernel launches of one forward (hidden 16, 2 layers, gat 2 heads)
-FORWARD_LAUNCHES = {
-    "gcn": {"fused_gnn": 2},
-    "sage_mean": {"shard_spmm": 2, "dense_engine": 2},
-    "sage_max": {"dense_engine": 4, "seg_gather": 2},
-    "gin": {"shard_spmm": 2, "dense_engine": 4},
-    "gat": {"shard_spmm": 3, "dense_engine": 2},
-}
 FIELDS = ("blocks", "edge_src", "edge_dst", "edge_valid")
 
 

@@ -20,6 +20,7 @@ from repro_torch.graphs.datasets import make_dataset
 from repro_torch.kernels import _lib, csr
 from repro_torch.kernels.registry import resolve
 from repro_torch.training.optimizer import tree_leaves
+from torch_launches import FORWARD_LAUNCHES
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 # ||g_cuda - g_reference|| / ||g_reference|| per parameter. The backward
@@ -27,14 +28,6 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 # (3xTF32 products, other summation orders: ~1e-7 relative), and it
 # reaches the gradient through the saved activations. 1e-4 leaves ~100x.
 GRAD_REL = 1e-4
-# kernel launches of one forward (hidden 16, 2 layers, gat 2 heads)
-FORWARD_LAUNCHES = {
-    "gcn": {"fused_gnn": 2},
-    "sage_mean": {"shard_spmm": 2, "dense_engine": 2},
-    "sage_max": {"dense_engine": 4, "seg_gather": 2},
-    "gin": {"shard_spmm": 2, "dense_engine": 4},
-    "gat": {"shard_spmm": 3, "dense_engine": 2},
-}
 
 
 @pytest.fixture
