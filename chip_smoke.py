@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 It needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it,
-and fails (non-zero exit, no result line) without them. Device memory:
+and fails (non-zero exit, no result line) without them, or when a
+``REPRO_KERNEL_BACKEND*`` variable is set (it would route ops away from
+the kernels). Device memory:
 ~6.4 GB of Pubmed block grids for serving and as much again for training
 (the stream phase: as much for its engine, a transient clone per patch
-and a fresh build to compare with), then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
-KV cache and a few GB of plain-attention scratch. In order:
+and a fresh build to compare with), 6.7 GB of reddit grids in phase 4h,
+then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
+KV cache and a few GB of plain-attention scratch, 5.4 GB of minicpm-2b,
+then ~38 GB of command-r-plus-104b at 8 layers. In order:
 
-1. device check: prints ``nvidia-smi``'s name and power limit; TF32 off;
+1. device check: the backend variables unset; prints ``nvidia-smi``'s
+   name and power limit; TF32 off;
 2. build: compiles ``src/repro_torch/kernels/csrc`` for sm_90a and prints
    the ``-Xptxas -v`` report (registers, shared memory, spills);
 3. GNN kernel phase: each GNN kernel against its plain PyTorch version on
@@ -122,6 +127,26 @@ KV cache and a few GB of plain-attention scratch. In order:
    "cuda"])`` returns 0. Printed: findings by rule and pass, the probes'
    ``timings_ms``, the dtype recorder's forward beside the plain one,
    the phase's wall time and peak device memory;
+4h. paper networks phase (its own graphs, freed before the LM phases):
+   ``repro_torch.core.models`` gcn, graphsage and graphsage_pool
+   (``paper_spec``, hidden 16, ``init_gnn`` on the card, shard n 512) on
+   full-scale Pubmed and on reddit x ``REDDIT_SCALE`` (23,296 nodes,
+   11,461,588 edges, 602 features, 41 classes; S 46, 2.22 GB of blocks a
+   signature). Each network: logits within 1e-4 of the same
+   ``make_forward`` on a controller pinned to ``reference``, launches per
+   forward and per masked cross-entropy step exactly ``PAPER_LAUNCHES``,
+   every gradient finite, nonzero and within ``GRAD_REL`` of the
+   reference backend's; the median synchronized forward printed. On
+   Pubmed: sage_max's gathers routed to ``reference`` by ``op_backends=``
+   and by ``REPRO_KERNEL_BACKEND_GATHER_AGGREGATE`` (0 seg_gather, 4
+   dense_engine, logits within 1e-4 of the all-cuda compile), an explicit
+   ``backend="cuda"`` over that variable launching the kernels, gat's
+   heads routed off shard_spmm; two standalone gcn compiles sharing one
+   ``default_store()`` build, and ``evict()`` freeing it. On reddit:
+   the host build's times (generator, ``shard_graph``, upload), and the
+   four GNN kernels against their plain versions at layer 0 (D 602),
+   timed beside their bound and a library call (``reddit`` on each
+   kernel row). Printed: the phase's wall time and peak device memory;
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -130,7 +155,10 @@ KV cache and a few GB of plain-attention scratch. In order:
    2048 and Sq < Skv (2e-4, 1e-5), and on the bf16 inputs it is timed on
    (8e-2, 5e-3). Both kernels, the CUDA-core one also on the bf16
    inputs, are timed beside the plain version and
-   ``scaled_dot_product_attention`` at both prompt lengths;
+   ``scaled_dot_product_attention`` at both prompt lengths; the
+   tensor-core kernel also at minicpm-2b's MHA shape (B 4, 36/36 heads,
+   dh 64, S 1024 and 2048; 8e-2, 5e-3), timed beside the plain version,
+   SDPA and its bound (``dh64_mha``);
 6. LM serve phase: qwen3-8b at full width (bf16, random weights from a
    seed) behind the Server (max batch 4): 4 requests with 1024-token and 4
    with 2048-token prompts, 16 new tokens each, greedy; all must complete,
@@ -139,10 +167,18 @@ KV cache and a few GB of plain-attention scratch. In order:
    batch's prefill logits must match the ``reference`` backend within
    ``LM_LOGIT_ATOL``; each batch's prefill is timed on both backends, and
    one prefill and one decode step are traced with ``torch.profiler``
-   (kernel time, launches, idle share);
+   (kernel time, launches, idle share); then minicpm-2b at full width and
+   depth (4 requests of 1024 prompt tokens, 16 new tokens; its logits
+   within ``MINICPM_LOGIT_ATOL``), then command-r-plus-104b at full width
+   and ``COMMAND_R_LAYERS`` of 64 layers (2 requests of 1024 tokens, one
+   prefill batch and 4 decode steps), each with the same launch checks
+   (one ``flash_attention_tc`` per layer per prefill batch) and parity,
+   each freed after, its wall time printed;
 7. summary: a ``kernels`` JSON line (each row with its launches in the
    serve run, a train step, the stream run, the tuned serve run, the
-   mesh serve run and the analyze phase's probes),
+   mesh serve run, the analyze phase's probes and the paper networks'
+   forwards and steps; flash_attention's also in the minicpm-2b and
+   command-r-plus-104b runs),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -288,6 +324,55 @@ MESH_ALLREDUCE = {"gcn": 389_120, "sage_mean": 389_120, "gin": 778_240}
 MESH_REQUESTS = 16
 MESH_TRAIN_STEPS = 5
 MESH_DELTAS = 5
+# the paper networks (phase 4h): Table III's gcn, graphsage and
+# graphsage_pool through repro_torch.core.models (hidden 16, one hidden
+# layer: two layers in all), shard n 512, on full-scale Pubmed and on
+# reddit with nodes and edges x REDDIT_SCALE: the dense (S, S, 512, 512)
+# block grid of full-scale reddit (S 456) is ~218 GB a signature, beyond
+# one card
+PAPER_NETS = ("gcn", "graphsage", "graphsage_pool")
+# reddit x0.1's rows sum ~500 (hub rows up to 19,353) weighted source rows
+# in float32, in an order the plain backward's atomics (index_add_) leave
+# to the card: a layer-0 pre-activation within that rounding of 0 takes
+# the other side of relu than in another float32 sum, and a unit that
+# flips moves its row's share of the gradient, ~1 / sqrt(13,888 train rows
+# x 16 units) ~ 2e-3 of its norm. The card read 2.3e-4 between gcn's cuda
+# and reference layer-0 gradients while layer 1's agree to 7e-7 (phase 4h
+# prints both, and each backend against a float64 product; PERF.md §6).
+# So on reddit the first layer's gradients are held to GRAD_REL_HUB
+# (a few flips; a wrong kernel or index is off by O(1)); every other
+# gradient to GRAD_REL.
+GRAD_REL_HUB = 1e-2
+PAPER_SHARD_N = 512
+REDDIT_SCALE = 0.1
+# kernel launches of one forward (tests/torch_launches.py states the
+# same): gcn 2 fused layers; graphsage 2 shard_spmm + 2 dense (the concat
+# product); graphsage_pool 4 dense (pool and concat per layer) + 2
+# gathers. A train step launches its forward's kernels and no more.
+PAPER_LAUNCHES = {
+    "gcn": {"fused_gnn": 2},
+    "graphsage": {"shard_spmm": 2, "dense_engine": 2},
+    "graphsage_pool": {"dense_engine": 4, "seg_gather": 2},
+}
+# the two LMs after qwen3-8b: minicpm-2b at full width and depth, 4
+# greedy requests of 1024 prompt tokens and 16 new tokens; its logits are
+# rms_norm(x) . embed^T / 9 with embed drawn at std 0.02 over d 2304, so
+# a logit's std is ~0.02 * 48 / 9 = 0.107, and a Gaussian's largest of
+# 4 x 122,753 (~5 std) ~0.53, in [0.5, 1) where a bf16 ulp is 2^-8: the
+# same 16 ulps as LM_LOGIT_ATOL give 0.0625 (0.25 would be ~2.3 std of
+# the logits themselves). The card reads std 0.107 and a heavier tail,
+# the largest 1.25, where 0.0625 is 8 ulps (PERF.md §6). The relative
+# norm limit scales with the logits: 5e-2.
+MINICPM_ARCH = "minicpm-2b"
+MINICPM_LOGIT_ATOL = 0.0625
+# command-r-plus-104b at full width (d 12288, 96/8 heads, dh 128, d_ff
+# 33792, vocab 256,000, untied head) and 8 of its 64 layers: each layer is
+# 1.57 B parameters (3.15 GB in bf16), the embedding and head 6.3 GB
+# each, so 8 layers come to ~38 GB. One prefill batch of 2 x 1024 tokens,
+# then 4 decode steps (5 new tokens). Its untied head is drawn at std
+# d^-1/2, so its logits have unit std like qwen3-8b's: LM_LOGIT_ATOL.
+COMMAND_R_ARCH = "command-r-plus-104b"
+COMMAND_R_LAYERS = 8
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -990,6 +1075,7 @@ def minibatch_phase(ds, dev, card: str, max_shard_n: int) -> None:
           f"{data_ms:.3f}, index build {index_ms:.3f}, step (its own index "
           f"build included) {step_ms:.3f}")
     del res, tr
+    runtime.default_store().evict()      # fit's full-graph build
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1724,6 +1810,8 @@ def mesh_phase(dev, card: str, kernels: dict) -> dict:
     torch.cuda.empty_cache()
 
     _mesh_stream(dev, card, mesh, specs["gcn"])
+    # the sage_max and gat compiles that raised built into the default store
+    runtime.default_store().evict()
     torch.cuda.synchronize()
     print(f"mesh phase wall time ({card}): "
           f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
@@ -1979,6 +2067,7 @@ def analyze_phase(dev, card: str) -> dict:
         ["--fail-on", "error", "--backend", "cuda"]))
     if rc != 0:
         raise RuntimeError(f"launch.analyze --backend cuda exited {rc}")
+    runtime.default_store().evict()      # the gate's compiles and fit
     for f in (f for rep in reports for f in rep.findings):
         rules[f.rule] = rules.get(f.rule, 0) + 1
         passes[f.pass_name] = passes.get(f.pass_name, 0) + 1
@@ -1992,6 +2081,491 @@ def analyze_phase(dev, card: str) -> dict:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+def _requiring_grad(params: dict) -> tuple[dict, dict]:
+    """A copy of a ``{"layers": [...]}`` tree whose leaves need
+    gradients, and those leaves by name."""
+    tree = {"layers": [{k: v.detach().clone().requires_grad_()
+                        for k, v in layer.items()}
+                       for layer in params["layers"]]}
+    return tree, {f"layers/{i}/{k}": v
+                  for i, layer in enumerate(tree["layers"])
+                  for k, v in layer.items()}
+
+
+def _paper_networks(card: str, label: str, ds, gts: dict,
+                    launches: dict, first_layer_rel: float = GRAD_REL
+                    ) -> dict:
+    """gcn, graphsage and graphsage_pool (``core.models``) on one graph:
+    logits within 1e-4 of the same ``make_forward`` on a controller
+    pinned to ``reference``, launches per forward and per train step
+    exactly ``PAPER_LAUNCHES``, the masked cross-entropy step's gradients
+    finite, nonzero and within ``GRAD_REL`` of the reference backend's
+    (the first layer's within ``first_layer_rel``); the median
+    synchronized forward printed. Adds the forwards' and steps' launches
+    to ``launches``; returns gcn's gradients by backend."""
+    from repro_torch.core import models
+    from repro_torch.core.engines import (DenseEngine, GNNeratorController,
+                                          GraphEngine)
+    from repro_torch.kernels.registry import get_backend
+    from repro_torch.runtime.fit import masked_cross_entropy
+
+    ref_be = get_backend("reference")
+    ref_ctrl = GNNeratorController(dense=DenseEngine(backend=ref_be),
+                                   graph=GraphEngine(backend=ref_be))
+    prof = ds.profile
+    dev = gts[PAPER_NETS[0]].device
+    feats = torch.from_numpy(ds.features).to(dev)
+    labels = torch.from_numpy(ds.labels).long().to(dev)
+    mask = torch.from_numpy(ds.train_mask).to(dev)
+    gcn_grads = {}
+    for net in PAPER_NETS:
+        gt = gts[net]
+        spec = models.paper_spec(net, prof.feature_dim, prof.num_classes)
+        params = models.init_gnn(torch.Generator(dev).manual_seed(0), spec)
+        h = gt.group(feats)
+        fwds = {"cuda": models.make_forward(spec),
+                "reference": models.make_forward(spec, ref_ctrl)}
+        with torch.inference_mode():
+            logits, fwd_launches = _launched(
+                lambda: fwds["cuda"](params, gt, h))
+            expect, ref_launches = _launched(
+                lambda: fwds["reference"](params, gt, h))
+        if fwd_launches != PAPER_LAUNCHES[net] or ref_launches:
+            raise AssertionError(f"paper {label} {net}: a forward launched "
+                                 f"{fwd_launches} (reference backend "
+                                 f"{ref_launches}), expected "
+                                 f"{PAPER_LAUNCHES[net]}")
+        if logits.shape != (prof.num_nodes, prof.num_classes) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"paper {label} {net}: logits "
+                                 f"{tuple(logits.shape)} not finite or of "
+                                 f"the wrong shape")
+        err = (logits - expect).abs().max().item()
+        torch.testing.assert_close(logits, expect, atol=1e-4, rtol=1e-4)
+
+        # the cuda step twice: the spread between two runs of the same
+        # code is the plain backward's atomics at work
+        losses, grads, step_launches = {}, {}, {}
+        for name, fwd in (("cuda", fwds["cuda"]), ("cuda_again", fwds["cuda"]),
+                          ("reference", fwds["reference"])):
+            p, leaves = _requiring_grad(params)
+
+            def step(fwd=fwd, p=p, leaves=leaves):
+                loss = masked_cross_entropy(fwd(p, gt, h), labels, mask)
+                return loss, dict(zip(leaves, torch.autograd.grad(
+                    loss, list(leaves.values()))))
+
+            (losses[name], grads[name]), step_launches[name] = \
+                _launched(step)
+            del p, leaves
+        if step_launches["cuda"] != PAPER_LAUNCHES[net] or \
+                step_launches["cuda_again"] != PAPER_LAUNCHES[net] or \
+                step_launches["reference"]:
+            raise AssertionError(f"paper {label} {net}: a train step "
+                                 f"launched {step_launches}")
+        rels, spread = {}, {}
+        for key, g in grads["cuda"].items():
+            e = grads["reference"][key]
+            if not torch.isfinite(g).all() or not g.abs().sum() > 0:
+                raise AssertionError(f"paper {label} {net}: gradient of "
+                                     f"{key} not finite or zero")
+            scale = e.norm().clamp_min(1e-30)
+            rels[key] = ((g - e).norm() / scale).item()
+            spread[key] = float(
+                f"{((g - grads['cuda_again'][key]).norm() / scale).item():.3e}")
+        limits = {key: first_layer_rel if key.startswith("layers/0/")
+                  else GRAD_REL for key in rels}
+        worst = max(rels, key=rels.get)
+        if any(rels[key] > limits[key] for key in rels):
+            raise AssertionError(f"paper {label} {net}: gradients vs the "
+                                 f"reference backend, relative norms {rels}"
+                                 f" (limits {limits})")
+        for got in (fwd_launches, step_launches["cuda"],
+                    step_launches["cuda_again"]):
+            for k, v in got.items():
+                launches[k] += v
+        with torch.inference_mode():
+            fwd_ms = float(np.median([
+                _synced(lambda: fwds["cuda"](params, gt, h))[1]
+                for _ in range(5)]))
+        print(f"paper {label} {net} ({card}): logits "
+              f"{tuple(logits.shape)} vs reference backend max_abs_err "
+              f"{err:.3e} (|logit| max {expect.abs().max().item():.3e}); "
+              f"forward launches {fwd_launches}; step loss "
+              f"{losses['cuda'].item():.6f} (reference "
+              f"{losses['reference'].item():.6f}), gradient relative norms "
+              f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} } (limit "
+              f"{limits[worst]} at the largest, {worst}); between two cuda "
+              f"steps {spread}; step "
+              f"launches {step_launches['cuda']}; forward median "
+              f"{fwd_ms:.3f} ms (of 5, host clock, synchronized)")
+        if net == "gcn":
+            gcn_grads = grads
+        del logits, expect, grads, params, h, fwds
+    return gcn_grads
+
+
+def _gcn_float64_check(card: str, ds, gt, grads: dict) -> None:
+    """gcn's step on ``gt`` in float64 (the kept index as a sparse CSR
+    product, the same seeded parameters): each backend's gradients
+    against it, and the pre-activations of layer 0 nearest 0 (a relu
+    there may fall on either side in float32)."""
+    from repro_torch.core import models
+
+    prof, dev = ds.profile, gt.device
+    spec = models.paper_spec("gcn", prof.feature_dim, prof.num_classes)
+    params = models.init_gnn(torch.Generator(dev).manual_seed(0), spec)
+    w0, w1 = (layer["w"].double().requires_grad_()
+              for layer in params["layers"])
+    idx, rows = gt.linear_index, gt.S * gt.n
+    a = torch.sparse_csr_tensor(idx.row_ptr.long(), idx.col.long(),
+                                idx.val.double(), size=(rows, rows))
+    x = gt.group(torch.from_numpy(ds.features).to(dev)).reshape(rows, -1)
+    pre0 = (a @ x.double()) @ w0
+    logits = ((a @ torch.relu(pre0)) @ w1)[: prof.num_nodes]
+    # masked_cross_entropy in float64 (the runtime's casts to float32)
+    labels = torch.from_numpy(ds.labels).long().to(dev)
+    mask = torch.from_numpy(ds.train_mask).to(dev).double()
+    nll = -torch.log_softmax(logits, -1).gather(1, labels[:, None])[:, 0]
+    loss = (nll * mask).sum() / mask.sum()
+    truth = dict(zip(("layers/0/w", "layers/1/w"),
+                     torch.autograd.grad(loss, [w0, w1])))
+
+    def rel(g, t):
+        return float(f"{((g.double() - t).norm() / t.norm()).item():.3e}")
+
+    rels = {name: {k: rel(g[k], t) for k, t in truth.items()}
+            for name, g in grads.items()}
+    near = pre0.detach()[: prof.num_nodes].abs()
+    print(f"paper gcn float64 check ({card}): gradient relative norms vs a "
+          f"float64 product {rels}; layer-0 pre-activations of the "
+          f"{prof.num_nodes} nodes: {int((near < 1e-9).sum())} within 1e-9 "
+          f"of 0, {int((near < 1e-7).sum())} within 1e-7, smallest "
+          f"{near.min().item():.3e} (std {pre0.std().item():.3e})")
+
+
+def _paper_routing(dev, card: str, ds) -> None:
+    """Per-op backend routing on full-scale Pubmed: ``op_backends=`` and
+    ``REPRO_KERNEL_BACKEND_GATHER_AGGREGATE`` take sage_max's gathers off
+    the kernel (0 seg_gather, 4 dense_engine launches, logits within 1e-4
+    of the all-cuda compile); an explicit ``backend="cuda"`` beats the
+    variable; gat with ``graph_aggregate_indexed`` on ``reference``
+    launches no shard_spmm for its heads."""
+    from repro_torch import runtime
+    from repro_torch.gnn.models import ZooSpec
+
+    prof = ds.profile
+    kw = dict(device=dev, max_shard_n=PAPER_SHARD_N,
+              store=runtime.GraphStore(), graph_key="pubmed")
+    checks = []
+
+    def routed(exe, label, expect, want):
+        logits, got = _launched(exe.forward)
+        if got != want:
+            raise AssertionError(f"routing {label}: a forward launched "
+                                 f"{got}, expected {want}")
+        err = (logits - expect).abs().max().item()
+        torch.testing.assert_close(logits, expect, atol=1e-4, rtol=1e-4)
+        checks.append(f"{label}: {exe.backend_name}, launches {got}, vs "
+                      f"all-cuda max_abs_err {err:.3e}")
+
+    for arch, per_op, off in (
+            ("sage_max", {"gather_aggregate": "reference"},
+             {"dense_engine": 4}),
+            ("gat", {"graph_aggregate_indexed": "reference"},
+             {"dense_engine": 2})):
+        spec = ZooSpec(arch, prof.feature_dim, 16, prof.num_classes)
+        base = runtime.compile(spec, ds, **kw)
+        expect, got = _launched(base.forward)
+        if got != FORWARD_LAUNCHES[arch]:
+            raise AssertionError(f"routing {arch}: the all-cuda forward "
+                                 f"launched {got}")
+        routed(runtime.compile(spec, ds, params=base.params,
+                               op_backends=per_op, **kw),
+               f"{arch} op_backends={per_op}", expect, off)
+        if arch != "sage_max":
+            continue
+        var = "REPRO_KERNEL_BACKEND_GATHER_AGGREGATE"
+        os.environ[var] = "reference"
+        try:
+            routed(runtime.compile(spec, ds, params=base.params, **kw),
+                   f"{arch} {var}=reference", expect, off)
+            routed(runtime.compile(spec, ds, params=base.params,
+                                   backend="cuda", **kw),
+                   f"{arch} backend='cuda' over {var}", expect,
+                   FORWARD_LAUNCHES[arch])
+        finally:
+            os.environ.pop(var)
+    print(f"paper routing ({card}, Pubmed): " + "; ".join(checks))
+
+
+def _paper_default_store(dev, card: str, ds) -> None:
+    """Two standalone gcn compiles on full-scale Pubmed share one build
+    of ``default_store()`` (one graph build, the same ``gt``);
+    ``default_store().evict()`` frees its blocks."""
+    from repro_torch import runtime
+    from repro_torch.gnn.models import ZooSpec
+    from repro_torch.runtime.cache import compile_counts
+
+    store = runtime.default_store()
+    if len(store):
+        raise AssertionError(f"the default store holds {len(store)} "
+                             f"builds from earlier phases")
+    prof = ds.profile
+    spec = ZooSpec("gcn", prof.feature_dim, 16, prof.num_classes)
+    builds0 = compile_counts()["graph_builds"]
+    e1, ms1 = _synced(lambda: runtime.compile(spec, ds, device=dev,
+                                              max_shard_n=PAPER_SHARD_N))
+    e2, ms2 = _synced(lambda: runtime.compile(spec, ds, device=dev,
+                                              max_shard_n=PAPER_SHARD_N,
+                                              seed=1))
+    builds = compile_counts()["graph_builds"] - builds0
+    if e1.gt is not e2.gt or builds != 1:
+        raise AssertionError(f"default store: {builds} graph builds for two "
+                             f"compiles, gt shared {e1.gt is e2.gt}")
+    if not torch.isfinite(e2.forward()).all():
+        raise AssertionError("default store: non-finite logits")
+    blocks = e1.gt.blocks.numel() * e1.gt.blocks.element_size()
+    del e1, e2
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    store.evict()
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    if freed < blocks or len(store):
+        raise AssertionError(f"default_store().evict() freed {freed} bytes, "
+                             f"the blocks alone are {blocks}")
+    print(f"paper default_store ({card}, Pubmed gcn): two standalone "
+          f"compiles share gt, 1 graph build (compiles {ms1:.1f} ms then "
+          f"{ms2:.1f} ms, host clock, synchronized); evict() freed "
+          f"{freed / 1e9:.3f} GB (blocks {blocks / 1e9:.3f} GB)")
+
+
+def _reddit_kernel_rows(kernels: dict, ds, gts: dict) -> None:
+    """The four GNN kernels against their plain versions at reddit's
+    layer-0 shapes (D 602), timed beside their bound and a library call
+    as phase 3 times them at Pubmed's; a ``reddit`` entry on each row."""
+    from repro_torch.kernels import dense_engine, fused_gnn, ref, seg_gather
+    from repro_torch.kernels import shard_spmm
+
+    dev = gts["gcn"].device
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    h = gts["gcn"].group(torch.from_numpy(ds.features).to(dev))
+    s, n, d = h.shape
+    rows = s * n
+    peak = "3.35 TB/s; f32 67 TFLOP/s (CUDA cores)"
+
+    def report(name, row):
+        kernels[name]["reddit"] = row
+        print(f"kernel {name} reddit x{REDDIT_SCALE:g}: max_abs_err "
+              f"{row['max_abs_err']:.3e} | kernel_ms {row['ms']:.3f} "
+              f"plain_ms {row['plain_ms']:.3f} library_ms "
+              f"{row['library_ms']:.3f} bound_ms {row['bound_ms']:.3f} "
+              f"({row['bound_by']}) | "
+              + ", ".join(f"{k} {v}" for k, v in row.items()
+                          if k not in ("max_abs_err", "ms", "plain_ms",
+                                       "library_ms", "bound_ms",
+                                       "bound_by")))
+
+    # shard_spmm: graphsage's mean blocks over the kept index
+    mgt = gts["graphsage"]
+    blocks, idx = mgt.blocks, mgt.linear_index
+    nnz = idx.col.numel()
+    out = shard_spmm.shard_spmm(blocks, h, index=idx)
+    plain = ref.shard_spmm(blocks, h)
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+    sparse = torch.sparse_csr_tensor(idx.row_ptr, idx.col, idx.val,
+                                     size=(rows, rows))
+    report("shard_spmm", {
+        **_measure(out, plain,
+                   lambda: shard_spmm.shard_spmm(blocks, h, index=idx),
+                   lambda: ref.shard_spmm(blocks, h),
+                   lambda: (sparse @ h.reshape(rows, -1)).reshape(s, n, d),
+                   _nbytes(idx.row_ptr, idx.col, idx.val, h, out),
+                   2.0 * nnz * d),
+        "nnz": nnz, "hub_rows": idx.hubs.numel(), "bound_peak": peak,
+        "library": "cuSPARSE CSR x h over the kept index",
+        "shape": {"s": s, "n": n, "d": d}})
+    del out, plain, sparse
+
+    # fused_gnn: gcn's normalized blocks, D 602 -> F 16, relu
+    ggt = gts["gcn"]
+    gblocks, lindex = ggt.blocks, ggt.linear_index
+    gnnz = lindex.col.numel()
+    w = randn(d, 16, scale=(2.0 / (d + 16)) ** 0.5)
+    out = fused_gnn.fused_gnn_layer(gblocks, h, w, activation="relu",
+                                    index=lindex)
+    plain = ref.fused_gnn(gblocks, h, w, activation="relu")
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+    csr = torch.sparse_csr_tensor(lindex.row_ptr, lindex.col, lindex.val,
+                                  size=(rows, rows))
+    report("fused_gnn", {
+        **_measure(out, plain,
+                   lambda: fused_gnn.fused_gnn_layer(gblocks, h, w,
+                                                     activation="relu",
+                                                     index=lindex),
+                   lambda: ref.fused_gnn(gblocks, h, w, activation="relu"),
+                   lambda: torch.relu((csr @ h.reshape(rows, -1)) @ w)
+                   .reshape(s, n, -1),
+                   _nbytes(lindex.row_ptr, lindex.col, lindex.val, h, w,
+                           out),
+                   2.0 * gnnz * d + 2.0 * rows * d * 16),
+        "nnz": gnnz, "hub_rows": lindex.hubs.numel(), "bound_peak": peak,
+        "library": "cuSPARSE CSR x h over the kept index, @ w, relu",
+        "shape": {"s": s, "n": n, "d": d, "f": 16}})
+    del out, plain, csr
+
+    # dense_engine: graphsage_pool's layer-0 pool product (no bias), also
+    # held to the float64 product
+    x = h.reshape(rows, d)
+    wp = randn(d, d, scale=(1.0 / d) ** 0.5)
+    out = dense_engine.dense_engine_matmul(x, wp, activation="relu")
+    plain = ref.dense_engine(x, wp, activation="relu")
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+    exact = x.double() @ wp.double()
+    got = dense_engine.dense_engine_matmul(x, wp)
+    rel64 = ((got.double() - exact).norm() / exact.norm()).item()
+    if rel64 > DENSE_REL:
+        raise AssertionError(f"dense_engine reddit: relative norm "
+                             f"{rel64:.3e} vs float64 above {DENSE_REL}")
+    del exact, got
+    report("dense_engine", {
+        **_measure(out, plain,
+                   lambda: dense_engine.dense_engine_matmul(
+                       x, wp, activation="relu"),
+                   lambda: ref.dense_engine(x, wp, activation="relu"),
+                   lambda: torch.relu(torch.mm(x, wp)),
+                   _nbytes(x, wp, out), 3 * 2.0 * rows * d * d,
+                   PEAK_TF32_FLOPS),
+        "rel_err_f64": rel64, "rel_tol": DENSE_REL,
+        "bound_peak": "3 TF32 passes at 495 TFLOP/s dense tensor cores, "
+                      "3.35 TB/s",
+        "library": "torch.mm + relu", "shape": [rows, d, d]})
+
+    # seg_gather: graphsage_pool's edge lists over its gather index, max
+    # over the pool product; exact
+    pgt = gts["graphsage_pool"]
+    z = out.reshape(s, n, d)
+    edges = (pgt.edge_src, pgt.edge_dst, pgt.edge_valid)
+    index = pgt.gather_index
+    out = seg_gather.seg_gather_aggregate(*edges, z, op="max", index=index)
+    plain = ref.seg_gather(*edges, z, op="max")
+    if not torch.equal(out, plain):
+        raise AssertionError(f"seg_gather reddit: max abs err "
+                             f"{(out - plain).abs().max().item():.3e}")
+    ii, jj, ee = pgt.edge_valid.nonzero(as_tuple=True)
+    dst = (ii * n + pgt.edge_dst[ii, jj, ee].long())[:, None].expand(-1, d)
+    src = jj * n + pgt.edge_src[ii, jj, ee].long()
+    del ii, jj, ee
+
+    def library():
+        # the kept-index library path (phase 3's): gather of the source
+        # rows, one scatter_reduce, empty -> 0
+        acc = torch.full((rows, d), float("-inf"), device=dev)
+        acc.scatter_reduce_(0, dst, z.reshape(-1, d).index_select(0, src),
+                            reduce="amax", include_self=True)
+        return torch.where(torch.isfinite(acc), acc, 0.0)
+
+    if not torch.equal(library().reshape(s, n, d), plain):
+        raise AssertionError("seg_gather reddit: the library path differs "
+                             "from the plain version")
+    valid = src.numel()
+    report("seg_gather", {
+        **_measure(out, plain,
+                   lambda: seg_gather.seg_gather_aggregate(
+                       *edges, z, op="max", index=index),
+                   lambda: ref.seg_gather(*edges, z, op="max"), library,
+                   _nbytes(*edges, z, out), float(valid * d)),
+        "valid_edges": valid, "edge_slots": int(pgt.edge_valid.numel()),
+        "bound_peak": peak,
+        "library": "gather + scatter_reduce over the kept index",
+        "shape": {"s": s, "n": n, "d": d}})
+
+
+def paper_phase(dev, card: str, kernels: dict) -> dict:
+    """Phase 4h (see the module docstring): the paper networks on Pubmed
+    and reddit, per-op routing, the default store, reddit's kernel rows.
+    Returns the kernel launches of the networks' forwards and steps."""
+    from repro_torch.core import models
+    from repro_torch.core.engines import GraphTensors
+    from repro_torch.core.sharding import shard_graph
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import _lib, csr
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launches = dict.fromkeys(_lib.KERNELS, 0)
+
+    pubmed = make_dataset("pubmed", seed=0)
+    prof = pubmed.profile
+    gts, build_s = _synced(lambda: {
+        net: models.build_graph_tensors(pubmed.edges, prof.num_nodes,
+                                        PAPER_SHARD_N, net, device=dev)
+        for net in PAPER_NETS})
+    print(f"paper pubmed ({card}): {prof.num_nodes} nodes, "
+          f"{pubmed.edges.shape[0]} edges; three builds "
+          f"{build_s / 1e3:.1f} s")
+    _paper_networks(card, "pubmed", pubmed, gts, launches)
+    del gts
+    gc.collect()
+    torch.cuda.empty_cache()
+    _paper_routing(dev, card, pubmed)
+    _paper_default_store(dev, card, pubmed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reddit = make_dataset("reddit", seed=0, scale=REDDIT_SCALE)
+    gen_s = time.perf_counter() - t0
+    prof = reddit.profile
+    gts, shard_s, upload_s = {}, {}, {}
+    for net in PAPER_NETS:
+        t0 = time.perf_counter()
+        sg = shard_graph(reddit.edges, prof.num_nodes, PAPER_SHARD_N,
+                         normalize=models.NORMALIZE[net],
+                         add_self_loops=True)
+        shard_s[net] = time.perf_counter() - t0
+        gts[net], upload_ms = _synced(
+            lambda: GraphTensors.from_sharded(sg, dev))
+        upload_s[net] = upload_ms / 1e3
+        del sg
+    gt = gts["gcn"]
+    deg = np.bincount(reddit.edges[:, 1], minlength=prof.num_nodes)
+    print(f"paper reddit x{REDDIT_SCALE:g} ({card}): {prof.num_nodes} nodes, "
+          f"{reddit.edges.shape[0]} directed edges + {prof.num_nodes} self "
+          f"loops, {prof.feature_dim} features, {prof.num_classes} classes; "
+          f"in-degree mean {deg.mean():.1f} max {deg.max()}; S {gt.S} of n "
+          f"{gt.n}, {gt.blocks.numel() * 4 / 1e9:.2f} GB of blocks a "
+          f"signature, edge slots a pair {gt.edge_src.shape[-1]}; host "
+          f"build (host clock): generator {gen_s:.1f} s, shard_graph "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in shard_s.items())
+          + ", upload " + ", ".join(f"{k} {v:.2f} s"
+                                     for k, v in upload_s.items()))
+    grads = _paper_networks(card, f"reddit x{REDDIT_SCALE:g}", reddit, gts,
+                            launches, first_layer_rel=GRAD_REL_HUB)
+    _gcn_float64_check(card, reddit, gts["gcn"], grads)
+    del grads
+    print(f"paper reddit x{REDDIT_SCALE:g}: linear index hub rows (more "
+          f"than {csr.HUB_ENTRIES} entries) "
+          f"{gt.linear_index.hubs.numel()} of {gt.S * gt.n} rows")
+    _reddit_kernel_rows(kernels, reddit, gts)
+    del gts, gt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"paper phase wall time ({card}): "
+          f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
     return launches
 
 
@@ -2104,28 +2678,86 @@ def attention_kernel_phase(dev, results: dict) -> None:
             rel_tol=ATTN_REL[torch.bfloat16],
             library_max_abs_err=(library.float() - plain.float())
             .abs().max().item())
+    del q, k, v, out, plain, library
+
+    # minicpm-2b's prefill shape: MHA (36/36 heads) at dh 64
+    b64, h64, dh64 = 4, 36, 64
+    if _route(torch.bfloat16, dh64) != "flash_attention_tc":
+        raise AssertionError("bf16 at dh 64 is not routed to the "
+                             "tensor-core kernel")
+    mha = {}
+    for plen in LM_PROMPTS:
+        q, k, v = (torch.randn((b64, h64, plen, dh64), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        out = flash_attention(q, k, v, causal=True)
+        plain = ref.flash_attention(q, k, v, causal=True)
+        err, rel = _attention_check(
+            f"flash_attention bfloat16 (flash_attention_tc) MHA dh 64 q "
+            f"{tuple(q.shape)} kv {tuple(k.shape)}", out, plain,
+            torch.bfloat16)
+        mha[plen] = {
+            **_measure(out, plain,
+                       lambda: flash_attention(q, k, v, causal=True),
+                       lambda: ref.flash_attention(q, k, v, causal=True),
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True),
+                       _nbytes(q, k, v, out),
+                       4.0 * dh64 * _attention_pairs(plen, plen) * b64 * h64,
+                       PEAK_BF16_FLOPS),
+            "rel_err": rel}
+        print(f"flash_attention MHA dh 64 at {b64}x{plen}: "
+              + ", ".join(f"{key} {val:.4g}" for key, val
+                          in mha[plen].items() if key != "bound_by"))
+        del q, k, v, out, plain
+    results["flash_attention"]["dh64_mha"] = {
+        "shape": {"b": b64, "hq": h64, "hkv": h64, "dh": dh64,
+                  "dtype": "bfloat16", "causal": True},
+        "library": "scaled_dot_product_attention", "by_prompt": mha}
 
 
-def lm_serve_phase(card: str) -> int:
-    """Serve qwen3-8b at full width through the Server; return the
-    tensor-core flash_attention launches of that run."""
+def lm_serve_phase(card: str, arch: str = LM_ARCH,
+                   prompts: tuple[int, ...] = LM_PROMPTS,
+                   per_prompt: int = LM_REQUESTS_PER_PROMPT,
+                   new_tokens: int = LM_NEW_TOKENS, *,
+                   n_layers: int | None = None,
+                   logit_atol: float = LM_LOGIT_ATOL,
+                   profile: bool = True, device: str = "cuda") -> int:
+    """Serve ``arch`` at full width through the Server (``n_layers`` cuts
+    its depth), ``per_prompt`` greedy requests per prompt length; return
+    the tensor-core flash_attention launches of that run."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.launch.serve import (build_lm_engine, drive_lm,
                                           latency_percentiles, lm_report,
                                           lm_requests, parser)
-    from repro_torch.serving import Completed
+    from repro_torch.models import lm
+    from repro_torch.serving import Completed, ServeEngine
 
     args = parser().parse_args(
-        ["--mode", "lm", "--arch", LM_ARCH, "--no-smoke",
-         "--prompt-len", str(max(LM_PROMPTS)),
-         "--new-tokens", str(LM_NEW_TOKENS), "--batch-size", "4"])
+        ["--mode", "lm", "--arch", arch, "--no-smoke", "--device", device,
+         "--prompt-len", str(max(prompts)),
+         "--new-tokens", str(new_tokens), "--batch-size", "4"])
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = build_lm_engine(args)
+    if n_layers is None:
+        engine = build_lm_engine(args)
+    else:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        print(f"lm {arch}: depth cut to {n_layers} of {full.n_layers} "
+              f"layers ({cfg.num_params() / 1e9:.2f} B of "
+              f"{full.num_params() / 1e9:.2f} B parameters), full width")
+        engine = ServeEngine(
+            cfg, lm.init_params(cfg, torch.Generator(device).manual_seed(0)),
+            max_len=args.prompt_len + args.new_tokens + 1, device=device,
+            backend=args.backend)
     torch.cuda.synchronize()
     cfg = engine.cfg
-    leaves = [engine.params["embed"], engine.params["final_norm"],
-              engine.params["lm_head"]]
+    leaves = [engine.params["embed"], engine.params["final_norm"]]
+    if not cfg.tie_embeddings:
+        leaves.append(engine.params["lm_head"])
     for layer in engine.params["layers"]:
         for part in layer.values():
             leaves.extend(part.values() if isinstance(part, dict) else [part])
@@ -2134,13 +2766,14 @@ def lm_serve_phase(card: str) -> int:
         raise AssertionError(f"{n_params} parameters, config says "
                              f"{cfg.num_params()}")
     print(f"lm setup: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} dh {cfg.head_dim} "
           f"{n_params / 1e9:.3f} B params, "
           f"{_nbytes(*leaves) / 1e9:.2f} GB {cfg.param_dtype}, drawn on the "
           f"card in {time.perf_counter() - t0:.1f} s; max_len {engine.max_len}")
 
-    requests = [r for i, plen in enumerate(LM_PROMPTS)
-                for r in lm_requests(cfg, LM_REQUESTS_PER_PROMPT, plen,
-                                     LM_NEW_TOKENS, seed=1 + i)]
+    requests = [r for i, plen in enumerate(prompts)
+                for r in lm_requests(cfg, per_prompt, plen, new_tokens,
+                                     seed=1 + i)]
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
@@ -2154,41 +2787,53 @@ def lm_serve_phase(card: str) -> int:
                              f"completed: {outcomes}")
     for o in done:
         toks = o.value
-        if toks.shape != (LM_NEW_TOKENS,) or not (
+        if toks.shape != (new_tokens,) or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
             raise AssertionError(f"bad generated tokens {toks}")
     batches = engine.stats["prefill_batches"]
     expect = cfg.n_layers * batches
     p50, p95, p99 = latency_percentiles(outcomes)
     print(server.report())
-    print(f"lm serve ({card}): {len(done)}/{len(requests)} requests, "
+    print(f"lm serve {arch} ({card}): {len(done)}/{len(requests)} requests, "
           f"{sum(len(o.value) for o in done)} tokens in {wall:.3f} s | "
           f"{lm_report(engine)} | latency p50 {p50:.3f} ms, p95 {p95:.3f} "
           f"ms, p99 {p99:.3f} ms | peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    print(f"lm serve: kernel launches {launches}")
-    if batches != len(LM_PROMPTS) or launches["flash_attention_tc"] \
+    print(f"lm serve {arch}: kernel launches {launches}")
+    if batches != len(prompts) or launches["flash_attention_tc"] \
             != expect or launches["flash_attention"]:
         raise AssertionError(
             f"flash_attention_tc launched {launches['flash_attention_tc']} "
             f"times (the CUDA-core kernel {launches['flash_attention']}) "
             f"over {batches} prefill batches; expected {cfg.n_layers} per "
-            f"batch over {len(LM_PROMPTS)} batches, all on the tensor cores")
+            f"batch over {len(prompts)} batches, all on the tensor cores")
+    if engine.stats["decode_steps"] != batches * (new_tokens - 1):
+        raise AssertionError(f"{engine.stats['decode_steps']} decode steps, "
+                             f"expected {batches * (new_tokens - 1)}")
 
-    lm_prefill_parity(engine, requests, done, card)
-    lm_profile(engine, requests[-LM_REQUESTS_PER_PROMPT:], card)
+    lm_prefill_parity(engine, requests, done, card, prompts, per_prompt,
+                      logit_atol)
+    if profile:
+        lm_profile(engine, requests[-per_prompt:], card)
+    del engine, server, outcomes, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm {arch} wall time ({card}): "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return launches["flash_attention_tc"]
 
 
-def lm_prefill_parity(engine, requests, served, card: str) -> None:
-    """Time each prompt length's batch through both backends; the shorter
-    batch's last-position logits must agree within the stated tolerance,
-    and its served first tokens must be their argmax."""
+def lm_prefill_parity(engine, requests, served, card: str,
+                      prompts: tuple[int, ...], n: int,
+                      logit_atol: float) -> None:
+    """Time each prompt length's batch through both backends; the first
+    batch's last-position logits must agree within ``logit_atol`` and
+    ``LM_LOGIT_REL``, and its served first tokens must be their argmax."""
     from repro_torch.models import lm
 
-    cfg, n = engine.cfg, LM_REQUESTS_PER_PROMPT
+    cfg = engine.cfg
     prefill_ms, logits = {}, {}
-    for i, plen in enumerate(LM_PROMPTS):
+    for i, plen in enumerate(prompts):
         toks = torch.from_numpy(np.stack(
             [r.prompt for r in requests[i * n:(i + 1) * n]])).to(engine.device)
         for backend in ("cuda", "reference"):
@@ -2202,9 +2847,9 @@ def lm_prefill_parity(engine, requests, served, card: str) -> None:
             if i == 0:
                 logits[backend] = out[:, 0].float()
             del out
-    print(f"lm prefill ({card}, host clock, synchronized): " + ", ".join(
-        f"{n}x{plen} {backend} {ms:.3f} ms"
-        for (plen, backend), ms in prefill_ms.items()))
+    print(f"lm prefill {cfg.name} ({card}, host clock, synchronized): "
+          + ", ".join(f"{n}x{plen} {backend} {ms:.3f} ms"
+                      for (plen, backend), ms in prefill_ms.items()))
     got, exp = logits["cuda"], logits["reference"]
     if got.shape != (n, cfg.vocab_size) or not torch.isfinite(got).all():
         raise AssertionError(f"prefill logits {tuple(got.shape)} not finite "
@@ -2212,12 +2857,12 @@ def lm_prefill_parity(engine, requests, served, card: str) -> None:
     err = (got - exp).abs().max().item()
     rel = ((got - exp).norm() / exp.norm()).item()
     top1 = (got.argmax(-1) == exp.argmax(-1)).float().mean().item()
-    print(f"lm parity ({LM_ARCH}, {n} x {LM_PROMPTS[0]} prompt tokens, "
+    print(f"lm parity ({cfg.name}, {n} x {prompts[0]} prompt tokens, "
           f"{cfg.param_dtype}): cuda vs reference prefill logits max_abs_err "
-          f"{err:.4e} (tol {LM_LOGIT_ATOL}), rel norm {rel:.4e} (tol "
+          f"{err:.4e} (tol {logit_atol}), rel norm {rel:.4e} (tol "
           f"{LM_LOGIT_REL}), top-1 agreement {top1:.2f}, |logit| max "
-          f"{exp.abs().max().item():.3f}")
-    if err > LM_LOGIT_ATOL or rel > LM_LOGIT_REL:
+          f"{exp.abs().max().item():.3f}, std {exp.std().item():.3f}")
+    if err > logit_atol or rel > LM_LOGIT_REL:
         raise AssertionError("cuda prefill logits disagree with the "
                              "reference backend")
     served_first = np.array([o.value[0] for o in served[:n]])
@@ -2282,7 +2927,18 @@ def lm_profile(engine, batch, card: str) -> None:
         _profile(decode, f"lm decode step (batch {toks.shape[0]})", card)
 
 
+def check_backend_env() -> None:
+    """Fail if a ``REPRO_KERNEL_BACKEND*`` variable is set: it would route
+    ops of the whole run to other backends than the kernels."""
+    stray = sorted(k for k in os.environ
+                   if k.startswith("REPRO_KERNEL_BACKEND"))
+    if stray:
+        raise SystemExit(f"chip_smoke: {stray} set; the run must reach the "
+                         f"kernels through the default backend")
+
+
 def main() -> None:
+    check_backend_env()
     card = device_check()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _lib
@@ -2314,15 +2970,24 @@ def main() -> None:
     tune_launches = tune_phase(dev, card)
     mesh_launches = mesh_phase(dev, card, kernels)
     analyze_launches = analyze_phase(dev, card)
+    paper_launches = paper_phase(dev, card, kernels)
 
     attention_kernel_phase(torch.device("cuda"), kernels)
-    kernels["flash_attention"]["launches"] = lm_serve_phase(card)
+    flash = kernels["flash_attention"]
+    flash["launches"] = lm_serve_phase(card)
+    flash["minicpm_launches"] = lm_serve_phase(
+        card, MINICPM_ARCH, prompts=(1024,), logit_atol=MINICPM_LOGIT_ATOL,
+        profile=False)
+    flash["command_r_launches"] = lm_serve_phase(
+        card, COMMAND_R_ARCH, prompts=(1024,), per_prompt=2, new_tokens=5,
+        n_layers=COMMAND_R_LAYERS, profile=False)
     for name, row in kernels.items():       # every row, flash_attention's too
         row["train_step_launches"] = train_launches.get(name, 0)
         row["stream_launches"] = stream_launches.get(name, 0)
         row["tune_launches"] = tune_launches.get(name, 0)
         row["mesh_launches"] = mesh_launches.get(name, 0)
         row["analyze_launches"] = analyze_launches.get(name, 0)
+        row["paper_launches"] = paper_launches.get(name, 0)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

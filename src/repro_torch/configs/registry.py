@@ -10,6 +10,8 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
 }

@@ -94,18 +94,20 @@ class DenseEngine:
     """Feature extraction: blocked matmul + activation unit.
 
     ``backend`` pins a :class:`~repro_torch.kernels.registry.KernelBackend`;
-    None means the registry default."""
+    None resolves per call from the registry (environment-selectable per
+    op)."""
 
     backend: KernelBackend | None = None
 
     def __call__(self, x, w, b=None, *, activation: str = "none"):
-        return resolve(self.backend).dense_matmul(x, w, b,
-                                                  activation=activation)
+        return resolve(self.backend, op="dense_matmul").dense_matmul(
+            x, w, b, activation=activation)
 
 
 @dataclasses.dataclass(frozen=True)
 class GraphEngine:
-    """Aggregation over the shard grid."""
+    """Aggregation over the shard grid. ``backend`` as
+    :class:`DenseEngine`'s."""
 
     backend: KernelBackend | None = None
 
@@ -116,9 +118,9 @@ class GraphEngine:
         (sum/mean/gcn), walked through the graph's kept linear index;
         max/sum go through the edge-list gather kernel."""
         if op == "linear":
-            return resolve(self.backend).graph_aggregate(
-                gt.blocks, h, index=gt.linear_index)
-        return resolve(self.backend).gather_aggregate(
+            return resolve(self.backend, op="graph_aggregate") \
+                .graph_aggregate(gt.blocks, h, index=gt.linear_index)
+        return resolve(self.backend, op="gather_aggregate").gather_aggregate(
             gt.edge_src, gt.edge_dst, gt.edge_valid, h, op=op,
             index=gt.gather_index)
 
@@ -127,12 +129,14 @@ class GraphEngine:
         """Linear aggregation over ``index`` alone: destination row r sums
         ``val[k] · h[col[k]]``. gat passes the graph's kept linear index
         with a head's attention weights as ``val``."""
-        return resolve(self.backend).graph_aggregate_indexed(index, h)
+        return resolve(self.backend, op="graph_aggregate_indexed") \
+            .graph_aggregate_indexed(index, h)
 
     def spmm(self, blocks: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """Shard-grid SpMM on explicit (S, S, n, n) blocks; their linear
         index is built in the call."""
-        return resolve(self.backend).graph_aggregate(blocks, h)
+        return resolve(self.backend, op="graph_aggregate") \
+            .graph_aggregate(blocks, h)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,9 +155,10 @@ class GNNeratorController:
                     b=None, *, activation: str = "none") -> torch.Tensor:
         """act((A · H) · W) — GCN-style layer body on grouped features."""
         if self.fuse and b is None:
-            return resolve(self.graph.backend).fused_aggregate_extract(
-                gt.blocks, h, w, activation=activation,
-                index=gt.linear_index)
+            be = resolve(self.graph.backend, op="fused_aggregate_extract")
+            return be.fused_aggregate_extract(gt.blocks, h, w,
+                                              activation=activation,
+                                              index=gt.linear_index)
         agg = self.graph.aggregate(gt, h, op="linear")
         s, n, d = agg.shape
         out = self.dense(agg.reshape(s * n, d), w, b, activation=activation)

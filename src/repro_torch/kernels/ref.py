@@ -5,11 +5,41 @@ on the card by ``chip_smoke.py`` and the ``cuda``-marked tests, on the CPU
 against the reference package's Pallas kernels in interpret mode
 (tests/test_torch_kernels.py) — and what a kernel wrapper runs for CPU
 tensors. Arithmetic is float32 throughout, like the reference oracles.
+
+The edge walks (:func:`spmm_indexed`, :func:`seg_gather`,
+:func:`seg_gather_indexed`) gather one source row per edge, an
+(edges x D) tensor. Above ``PLAIN_BLOCK_ELEMENTS`` of it they walk the
+feature columns block by block, each block under a checkpoint, so
+neither the forward nor the backward holds more than a block of gathered
+rows (reddit at 0.1 scale: 11.5 M edges x 602 features would be 27.6 GB
+a copy). Every column is reduced alone, in the same edge order, so the
+blocks give bitwise the same output as one block. Below it (and for every
+Table-II graph's index) they run as one block.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+PLAIN_BLOCK_ELEMENTS = 1 << 28
+
+
+def _by_columns(fn, hf: torch.Tensor, edges: int, *args) -> torch.Tensor:
+    """``fn(hf[:, c0:c1], *args)`` over column blocks of at most
+    ``PLAIN_BLOCK_ELEMENTS // edges`` columns, concatenated; one call if
+    all columns fit, a checkpoint per block when autograd records.
+    ``edges`` bounds the rows ``fn`` gathers."""
+    d = hf.shape[-1]
+    per = max(1, PLAIN_BLOCK_ELEMENTS // max(edges, 1))
+    if per >= d:
+        return fn(hf, *args)
+    parts = []
+    for c0 in range(0, d, per):
+        hc = hf[:, c0:c0 + per]
+        parts.append(checkpoint(fn, hc, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else fn(hc, *args))
+    return torch.cat(parts, dim=-1)
 
 
 def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -65,8 +95,15 @@ def spmm_indexed(index, h: torch.Tensor) -> torch.Tensor:
     rows = index.row_ptr.numel() - 1
     counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
     dst = torch.repeat_interleave(torch.arange(rows, device=h.device), counts)
-    vals = h.reshape(-1, d).float()[index.col.long()] * index.val[:, None]
-    agg = torch.zeros((rows, d), device=h.device).index_add_(0, dst, vals)
+    col = index.col.long()
+
+    def walk(hc, val):
+        vals = hc[col] * val[:, None]
+        return torch.zeros((rows, hc.shape[-1]), device=hc.device) \
+            .index_add_(0, dst, vals)
+
+    agg = _by_columns(walk, h.reshape(-1, d).float(), col.numel(),
+                      index.val)
     return agg.reshape(rows // n, n, d).to(h.dtype)
 
 
@@ -97,16 +134,23 @@ def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     ii, jj, ee = edge_valid.nonzero(as_tuple=True)
     src = jj * n + edge_src[ii, jj, ee].long()
     dst = ii * n + edge_dst[ii, jj, ee].long()
-    vals = h.reshape(-1, d).float()[src]
+    out = _by_columns(lambda hc: _reduce(hc[src], dst, s_dst * n, op),
+                      h.reshape(-1, d).float(), src.numel())
+    return out.reshape(s_dst, n, d).to(h.dtype)
+
+
+def _reduce(vals: torch.Tensor, dst: torch.Tensor, rows: int,
+            op: str) -> torch.Tensor:
+    """(rows, D): the max (0 where a row has no edge) or the sum of
+    ``vals`` per destination row ``dst``."""
+    d = vals.shape[-1]
     if op == "max":
-        out = torch.full((s_dst * n, d), float("-inf"), device=h.device)
+        out = torch.full((rows, d), float("-inf"), device=vals.device)
         out.scatter_reduce_(0, dst[:, None].expand(-1, d), vals,
                             reduce="amax", include_self=True)
-        out = torch.where(torch.isfinite(out), out, 0.0)
-    else:
-        out = torch.zeros((s_dst * n, d), device=h.device)
-        out.index_add_(0, dst, vals)
-    return out.reshape(s_dst, n, d).to(h.dtype)
+        return torch.where(torch.isfinite(out), out, 0.0)
+    return torch.zeros((rows, d), device=vals.device).index_add_(0, dst,
+                                                                 vals)
 
 
 def seg_gather_indexed(index, h: torch.Tensor, *,
@@ -122,15 +166,9 @@ def seg_gather_indexed(index, h: torch.Tensor, *,
     counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
     dst = torch.repeat_interleave(
         torch.arange(rows, device=h.device), counts)
-    vals = h.reshape(-1, d).float()[index.src.long()]
-    if op == "max":
-        out = torch.full((rows, d), float("-inf"), device=h.device)
-        out.scatter_reduce_(0, dst[:, None].expand(-1, d), vals,
-                            reduce="amax", include_self=True)
-        out = torch.where(torch.isfinite(out), out, 0.0)
-    else:
-        out = torch.zeros((rows, d), device=h.device)
-        out.index_add_(0, dst, vals)
+    src = index.src.long()
+    out = _by_columns(lambda hc: _reduce(hc[src], dst, rows, op),
+                      h.reshape(-1, d).float(), src.numel())
     return out.reshape(rows // n, n, d).to(h.dtype)
 
 

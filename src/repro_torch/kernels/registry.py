@@ -1,6 +1,6 @@
 """Kernel backends: one method per engine compute primitive.
 
-Two backends, with the reference package's op names:
+Two backends ship, with the reference package's op names:
 
   cuda        the default: the hand-written kernels under ``csrc/``. Each
               wrapper runs its plain version only for CPU tensors; for
@@ -8,10 +8,21 @@ Two backends, with the reference package's op names:
               are differentiable: see :func:`_with_plain_vjp`.
   reference   the plain PyTorch versions (:mod:`repro_torch.kernels.ref`)
               on whatever device the tensors are on.
+
+More can be added with :func:`register_backend`. Selection precedence,
+most specific wins:
+
+  1. an explicit backend passed per call / per ``runtime.compile(...)``,
+  2. a per-op override in ``REPRO_KERNEL_BACKEND_<OP>`` (op upper-cased),
+  3. the global ``REPRO_KERNEL_BACKEND`` environment variable,
+  4. the default, ``cuda``.
+
+``ref`` is accepted everywhere as an alias for ``reference``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Protocol, runtime_checkable
 
 import torch
@@ -205,22 +216,83 @@ class ReferenceBackend:
                                    window=window)
 
 
-_REGISTRY: dict[str, KernelBackend] = {
-    "cuda": CudaBackend(), "reference": ReferenceBackend()}
+_REGISTRY: dict[str, KernelBackend] = {}
+_ALIASES: dict[str, str] = {}
+
+
+def register_backend(backend: KernelBackend, *,
+                     aliases: tuple[str, ...] = ()) -> KernelBackend:
+    """Register a backend under ``backend.name`` (plus ``aliases``).
+    Re-registering a name replaces it, so tests and plugins can swap
+    implementations."""
+    _REGISTRY[backend.name] = backend
+    for a in aliases:
+        _ALIASES[a] = backend.name
+    return backend
+
+
+def get_backend(name: str) -> KernelBackend:
+    """The registered backend called ``name`` (or an alias of it)."""
+    try:
+        return _REGISTRY[_ALIASES.get(name, name)]
+    except KeyError:
+        raise ValueError(f"unknown kernel backend {name!r}; "
+                         f"registered: {list_backends()}") from None
 
 
 def list_backends() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def resolve(backend: str | KernelBackend | None = None) -> KernelBackend:
-    """A backend object from a name, an object, or None (the default)."""
-    if backend is None:
-        backend = DEFAULT_BACKEND
-    if not isinstance(backend, str):
+def resolve(backend: str | KernelBackend | None = None, *,
+            op: str | None = None) -> KernelBackend:
+    """The backend for one call (see the module docstring for the
+    precedence).
+
+    ``backend`` is the explicit choice and wins: a registered name or a
+    backend object (e.g. a :func:`composite_backend`). With None, the
+    environment decides: ``REPRO_KERNEL_BACKEND_<OP>`` for ``op`` (a
+    keyword: ``op=None`` skips the per-op variable), then
+    ``REPRO_KERNEL_BACKEND``, then ``DEFAULT_BACKEND``. The reference
+    package's ``resolve(op, override)`` takes the op first; here the
+    first positional argument is always the backend.
+    """
+    if backend is not None:
+        if isinstance(backend, str):
+            return get_backend(backend)
         return backend
-    try:
-        return _REGISTRY[backend]
-    except KeyError:
-        raise ValueError(f"unknown kernel backend {backend!r}; "
-                         f"available: {list_backends()}") from None
+    if op is not None:
+        per_op = os.environ.get(f"REPRO_KERNEL_BACKEND_{op.upper()}")
+        if per_op:
+            return get_backend(per_op)
+    return get_backend(os.environ.get("REPRO_KERNEL_BACKEND",
+                                      DEFAULT_BACKEND))
+
+
+class _CompositeBackend:
+    """Routes each op to its own backend (per-op selection)."""
+
+    def __init__(self, default: KernelBackend,
+                 per_op: dict[str, KernelBackend]):
+        self.default = default
+        self.per_op = per_op
+        ops = ",".join(f"{k}={v.name}" for k, v in sorted(per_op.items()))
+        self.name = f"composite({default.name}; {ops})"
+        for op in OP_NAMES:
+            setattr(self, op, getattr(per_op.get(op, default), op))
+
+
+def composite_backend(default: str | KernelBackend,
+                      per_op: dict[str, str | KernelBackend]
+                      ) -> KernelBackend:
+    """A backend that answers each op from its own registry entry
+    (``runtime.compile(..., op_backends={...})`` builds one)."""
+    for op in per_op:
+        if op not in OP_NAMES:
+            raise ValueError(f"unknown op {op!r}; ops: {OP_NAMES}")
+    return _CompositeBackend(
+        resolve(default), {op: resolve(b) for op, b in per_op.items()})
+
+
+register_backend(CudaBackend())
+register_backend(ReferenceBackend(), aliases=("ref",))

@@ -76,14 +76,15 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``return_kv`` also the post-RoPE (k, v), each (B, Hkv, S, dh).
 
     The attention itself is the registry's ``attention`` op (``backend``:
-    ``cuda`` by default, or ``reference``), causal, with ``window`` and
-    the scale dh ** -0.5."""
+    ``cuda`` or ``reference``; None reads the registry's environment
+    variables, then ``cuda``), causal, with ``window`` and the scale
+    dh ** -0.5."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _rope_qk(q, k, positions, cfg)
-    out = registry.resolve(backend).attention(q, k, v, causal=True,
-                                              window=window, scale=dh ** -0.5)
+    out = registry.resolve(backend, op="attention").attention(
+        q, k, v, causal=True, window=window, scale=dh ** -0.5)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
     out = dense(out.to(x.dtype), p["wo"])
     if return_kv:

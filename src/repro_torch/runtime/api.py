@@ -14,6 +14,7 @@ pinned with one kernel backend. With ``mesh=`` the compiled unit is a
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -22,7 +23,7 @@ from repro_torch.core.perf_model import GNNERATOR, Platform
 from repro_torch.gnn.executor import plan_model
 from repro_torch.gnn.models import ZooSpec, init_params, params_from_numpy
 from repro_torch.kernels import registry
-from repro_torch.runtime.cache import GraphStore, count
+from repro_torch.runtime.cache import GraphStore, count, default_store
 from repro_torch.runtime.executable import Executable
 
 
@@ -81,6 +82,7 @@ def compile(spec: ZooSpec, graph, *,
             device: torch.device | str | None = None,
             platform: Platform = GNNERATOR,
             backend: str | registry.KernelBackend | None = None,
+            op_backends: dict[str, str | registry.KernelBackend] | None = None,
             params: dict | None = None,
             seed: int = 0,
             max_shard_n: int = 1024,
@@ -112,14 +114,22 @@ def compile(spec: ZooSpec, graph, *,
         ``cuda`` (and raises without a card).
       platform: the performance-model platform the planner optimizes for.
       backend: ``"cuda"`` (default: the hand-written kernels) or
-        ``"reference"`` (the plain PyTorch versions), or a backend object.
+        ``"reference"`` (the plain PyTorch versions), any other registered
+        name, or a backend object. None reads ``REPRO_KERNEL_BACKEND``
+        (then ``cuda``).
+      op_backends: per-op overrides ``{op: backend}`` over
+        ``registry.OP_NAMES`` (e.g. ``{"gather_aggregate":
+        "reference"}``); the Executable is pinned to a
+        :func:`~repro_torch.kernels.registry.composite_backend`.
       params: adopt a parameter tree (numpy arrays or tensors); None
         draws one from ``seed`` with a ``torch.Generator``.
       max_shard_n: planner cap on nodes per shard.
       block_candidates: the planner's feature-block candidates (default:
         the planner's own).
-      store: GraphStore for the signature-keyed graph build; None uses a
-        private one (nothing outlives the Executable).
+      store: GraphStore for the signature-keyed graph build; None uses
+        the module-wide :func:`~repro_torch.runtime.cache.default_store`,
+        so standalone compiles of one graph share its builds (up to 8,
+        kept on the device until ``default_store().evict()``).
       graph_key: cache key naming the graph contents (default: a
         fingerprint of the edge list and features).
       graph_version: monotonic mutation generation of the graph; None
@@ -187,14 +197,26 @@ def compile(spec: ZooSpec, graph, *,
     dev = resolve_device(device)
     count("compiles")
     edges, num_nodes, features = _as_graph(graph)
+    # precedence per op: explicit op_backends > explicit backend arg >
+    # REPRO_KERNEL_BACKEND_<OP> env > global env > default. An explicit
+    # backend arg deliberately beats the per-op env vars; when none is
+    # given, the env overrides must survive into the pinned Executable.
+    per_op = dict(op_backends or {})
+    if backend is None:
+        for op in registry.OP_NAMES:
+            env = os.environ.get(f"REPRO_KERNEL_BACKEND_{op.upper()}")
+            if env and op not in per_op:
+                per_op[op] = env
     be = registry.resolve(backend)
+    if per_op:
+        be = registry.composite_backend(be, per_op)
     if graph_version is None:
         graph_version = int(getattr(graph, "version", 0))
     if graph_key is None:
         graph_key = graph_fingerprint(edges, num_nodes, features,
                                       version=graph_version)
     if store is None:
-        store = GraphStore()
+        store = default_store()
     if params is None:
         params = init_params(spec, torch.Generator().manual_seed(seed), dev)
     else:

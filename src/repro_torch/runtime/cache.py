@@ -195,3 +195,14 @@ class GraphStore:
                 return
             for key in [k for k in self._entries if k[0] == graph_key]:
                 del self._entries[key]
+
+
+# the module-wide store that standalone runtime.compile() calls share
+_DEFAULT_STORE = GraphStore()
+
+
+def default_store() -> GraphStore:
+    """The store ``runtime.compile`` and ``runtime.fit`` use when given
+    none. Its builds (up to ``max_entries`` = 8 of them, on the device)
+    live as long as the process: free them with ``default_store().evict()``."""
+    return _DEFAULT_STORE

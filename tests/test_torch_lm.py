@@ -3,8 +3,10 @@
 The same numpy inputs and parameters (drawn by the reference, handed over
 through ``repro_torch.models.lm.params_from_numpy``) go through
 ``repro``'s layers, forward, prefill/decode and ServeEngine and through
-the port's, at the SMOKE sizes of qwen3-8b (qk-norm, untied head) and
-qwen2.5-3b (QKV bias, tied embeddings). On the CPU the port's attention
+the port's, at the SMOKE sizes of qwen3-8b (qk-norm, untied head),
+qwen2.5-3b (QKV bias, tied embeddings), minicpm-2b (tied embeddings, MHA,
+the μP embedding, residual and logit scales) and command-r-plus-104b
+(GQA 4:1, untied head). On the CPU the port's attention
 runs the plain version of its flash-attention kernel.
 
 Tolerances: float32 1e-4 (2e-4 / 5e-4 for prefill / decode against the
@@ -32,7 +34,7 @@ from repro_torch.nn import rope as t_rope
 from repro_torch.serving import (Completed, Rejected, Request,
                                  SchedulerConfig, ServeEngine, Server)
 
-ARCHS = ("qwen3-8b", "qwen2.5-3b")
+ARCHS = ("qwen3-8b", "qwen2.5-3b", "minicpm-2b", "command-r-plus-104b")
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=1e-1, rtol=5e-2)
 
@@ -314,7 +316,37 @@ def test_unported_archs_and_blocks_raise():
                               local_window=8)
     with pytest.raises(NotImplementedError, match="local_attn"):
         t_lm.init_params(cfg, torch.Generator().manual_seed(0))
-    assert t_configs.ARCHS == ("qwen2.5-3b", "qwen3-8b")
+    assert t_configs.ARCHS == ("command-r-plus-104b", "minicpm-2b",
+                               "qwen2.5-3b", "qwen3-8b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_equal_reference_field_for_field(jx, arch):
+    from repro.configs.registry import get_config as jax_get_config
+
+    for ours, theirs in ((t_configs.get_config(arch), jax_get_config(arch)),
+                         (t_configs.get_smoke(arch), jx.get_smoke(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.num_params() == theirs.num_params()
+
+
+def test_full_configs_match_assignment_and_param_counts():
+    """tests/test_archs.py's hyper-parameters and nameplate bounds."""
+    spec = {"minicpm-2b": (40, 2304, 36, 36, 5760, 122753),
+            "command-r-plus-104b": (64, 12288, 96, 8, 33792, 256000)}
+    for arch, want in spec.items():
+        cfg = t_configs.get_config(arch)
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                cfg.d_ff, cfg.vocab_size) == want
+    for arch, (want, tol) in {"command-r-plus-104b": (104e9, 0.15),
+                              "minicpm-2b": (2.7e9, 0.15),
+                              "qwen3-8b": (8.2e9, 0.15)}.items():
+        got = t_configs.get_config(arch).num_params()
+        assert abs(got - want) / want < tol, (arch, got, want)
+    mini = t_configs.get_config("minicpm-2b")
+    assert mini.tie_embeddings and mini.head_dim == 64
+    assert (mini.emb_scale, mini.logit_scale) == (12.0, 1.0 / 9.0)
+    assert not t_configs.get_config("command-r-plus-104b").tie_embeddings
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,8 @@ requests, serve the same classes and count the same invalidations; the
 stream trainer's first loss matches the reference's within 1e-5.
 
 The reference's ``test_mutation_oracle_*`` tests drive ``repro.analyze``
-(the RT003 mutation oracle), which is not ported yet: ROADMAP.md Queue 1
-item 6.
+(the RT003 mutation oracle); their port, against the reference's oracle,
+is in ``tests/test_torch_analyze.py`` (``test_mutation_oracle_*``).
 """
 import dataclasses
 
@@ -450,9 +450,12 @@ def test_mutation_keeps_the_executable_and_matches(arch):
 def test_update_graph_refuses_a_template_break():
     ds = _ds()
     spec, _ = _specs(ds.profile, "gcn")
+    # a store each: the default store would hand the immutable compile
+    # the mutable build
     exe = runtime.compile(spec, ds, device="cpu", max_shard_n=SHARD_N,
-                          mutable_graph=True)
-    other = runtime.compile(spec, ds, device="cpu", max_shard_n=SHARD_N)
+                          mutable_graph=True, store=runtime.GraphStore())
+    other = runtime.compile(spec, ds, device="cpu", max_shard_n=SHARD_N,
+                            store=runtime.GraphStore())
     gt = exe.gt
     # the immutable build has no slack slots: another edge-list shape
     with pytest.raises(ValueError, match="template break"):

@@ -14,3 +14,14 @@ FORWARD_LAUNCHES = {
     "gin": {"shard_spmm": 2, "dense_engine": 4},
     "gat": {"shard_spmm": 3, "dense_engine": 2},
 }
+
+# one forward of the paper's Table-III networks (repro_torch.core.models,
+# hidden 16, one hidden layer: two layers in all): gcn 2 fused layers
+# (graph_first, fuse=True); graphsage 2 shard_spmm + 2 dense (the concat
+# product); graphsage_pool 4 dense (pool and concat per layer) + 2
+# gathers
+PAPER_FORWARD_LAUNCHES = {
+    "gcn": {"fused_gnn": 2},
+    "graphsage": {"shard_spmm": 2, "dense_engine": 2},
+    "graphsage_pool": {"dense_engine": 4, "seg_gather": 2},
+}
