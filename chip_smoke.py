@@ -12,7 +12,10 @@ the kernels). Device memory:
 and a fresh build to compare with), 6.7 GB of reddit grids in phase 4h,
 then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
 KV cache and a few GB of plain-attention scratch, 5.4 GB of minicpm-2b,
-then ~38 GB of command-r-plus-104b at 8 layers. In order:
+then ~38 GB of command-r-plus-104b at 8 layers, 28.6 GB of
+qwen2-moe-a2.7b (38 GB at its peak), 39.4 GB of llama4-scout-17b-a16e at
+8 layers (57 GB at its peak, in the float64 MoE check), 5.8 GB of
+recurrentgemma-2b and 2.7 GB of mamba2-1.3b. In order:
 
 1. device check: the backend variables unset; prints ``nvidia-smi``'s
    name and power limit; TF32 off;
@@ -158,7 +161,11 @@ then ~38 GB of command-r-plus-104b at 8 layers. In order:
    ``scaled_dot_product_attention`` at both prompt lengths; the
    tensor-core kernel also at minicpm-2b's MHA shape (B 4, 36/36 heads,
    dh 64, S 1024 and 2048; 8e-2, 5e-3), timed beside the plain version,
-   SDPA and its bound (``dh64_mha``);
+   SDPA and its bound (``dh64_mha``); the CUDA-core kernel at
+   recurrentgemma-2b's local attention (B 4, MQA 10/1, dh 256, window
+   2048; S 1024, 2048 and Sq 512 < Skv 2048) in bf16 (8e-2, 5e-3) and
+   float32 (2e-4, 1e-5), timed beside the plain version, SDPA with the
+   banded mask and its bound (``dh256_mqa_window``);
 6. LM serve phase: qwen3-8b at full width (bf16, random weights from a
    seed) behind the Server (max batch 4): 4 requests with 1024-token and 4
    with 2048-token prompts, 16 new tokens each, greedy; all must complete,
@@ -171,14 +178,32 @@ then ~38 GB of command-r-plus-104b at 8 layers. In order:
    depth (4 requests of 1024 prompt tokens, 16 new tokens; its logits
    within ``MINICPM_LOGIT_ATOL``), then command-r-plus-104b at full width
    and ``COMMAND_R_LAYERS`` of 64 layers (2 requests of 1024 tokens, one
-   prefill batch and 4 decode steps), each with the same launch checks
-   (one ``flash_attention_tc`` per layer per prefill batch) and parity,
-   each freed after, its wall time printed;
+   prefill batch and 4 decode steps), then qwen2-moe-a2.7b at full width
+   and depth (4 x 1024, 16 new, one request at ``SAMPLE_TEMPERATURE``:
+   its batch must repeat token for token from the same engine seed),
+   llama4-scout-17b-a16e at full width and ``LLAMA4_LAYERS`` of 48 layers
+   (2 x 1024, 5 new), recurrentgemma-2b (4 x 1024 and 4 x 2048, 16 new:
+   shorter than and equal to its 2048 window, decode wraps the ring
+   buffer) and mamba2-1.3b (4 x 1024, 16 new), each with the same launch
+   checks (one flash_attention per attention layer per prefill batch, on
+   the kernel ``_route`` picks: ``_tc`` at dh 64 and 128, the CUDA-core
+   one at recurrentgemma's dh 256, none for mamba2), its parameter count
+   (``num_params()`` plus the conv biases it leaves out) and parity (the
+   MoE models against the reference run with the cuda run's routing
+   replayed, the free-running routing agreement per layer printed). The
+   last four also hold the RG-LRU scan, the chunked SSD and the MoE
+   dispatch and combine of one full-width layer to float64
+   (``RGLRU_REL``, ``SSD_REL``, ``MOE_REL``; the MoE one with a row that
+   overflows every capacity it uses), and prefill + one decode step to
+   the full forward (``LM_LOGIT_ATOL``; MoE at no-drop capacity with the
+   forward's routing replayed). Each model is freed after, its wall time
+   and peak memory printed; qwen3-8b and the last four are profiled;
 7. summary: a ``kernels`` JSON line (each row with its launches in the
    serve run, a train step, the stream run, the tuned serve run, the
    mesh serve run, the analyze phase's probes and the paper networks'
-   forwards and steps; flash_attention's also in the minicpm-2b and
-   command-r-plus-104b runs),
+   forwards and steps; flash_attention's also in the minicpm-2b,
+   command-r-plus-104b, qwen2-moe-a2.7b, llama4-scout-17b-a16e,
+   recurrentgemma-2b and mamba2-1.3b runs),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -373,6 +398,44 @@ MINICPM_LOGIT_ATOL = 0.0625
 # d^-1/2, so its logits have unit std like qwen3-8b's: LM_LOGIT_ATOL.
 COMMAND_R_ARCH = "command-r-plus-104b"
 COMMAND_R_LAYERS = 8
+# The MoE, hybrid and SSM models. qwen2-moe-a2.7b at full width and depth
+# (14.32 B parameters, 28.6 GB): 4 requests of 1024 tokens, 16 new, one
+# of them sampled at SAMPLE_TEMPERATURE. llama4-scout-17b-a16e at full
+# width and LLAMA4_LAYERS of 48 layers (19.69 B parameters, 39.4 GB;
+# 48 layers are 107.8 B, 216 GB): 2 requests of 1024 tokens, 5 new.
+# recurrentgemma-2b (2.89 B) with prompts shorter than (1024) and equal to
+# (2048) its 2048-token window, 16 new tokens, so that decode wraps the
+# ring buffer; its local attention is MQA 10/1 at dh 256 on the CUDA-core
+# flash_attention. mamba2-1.3b (1.34 B): 4 x 1024, 16 new; no attention.
+# Logit gates, set before the first run: each head gives logits of about
+# unit std (untied heads drawn at std d^-1/2; tied embeddings at std 0.02,
+# 0.02 * sqrt(2560) = 1.01 and 0.02 * sqrt(2048) = 0.91), as qwen3-8b's,
+# so LM_LOGIT_ATOL and LM_LOGIT_REL. The two backends differ in attention
+# only, and a bf16 difference there can move a near-tied top-k choice of
+# a later layer's router, which changes that token's FFN output
+# discretely: for the MoE models the gate holds the reference run with the
+# cuda run's routing replayed (the continuous error), and the free-running
+# run's routing agreement per layer and its error are printed beside it.
+QWEN_MOE_ARCH = "qwen2-moe-a2.7b"
+LLAMA4_ARCH = "llama4-scout-17b-a16e"
+LLAMA4_LAYERS = 8
+RG_ARCH = "recurrentgemma-2b"
+MAMBA_ARCH = "mamba2-1.3b"
+SAMPLE_TEMPERATURE = 0.8
+# recurrentgemma's attention shape for phase 5: B 4, Hq 10, Hkv 1, dh 256
+RG_ATTN = (4, 10, 1, 256)
+RG_WINDOW = 2048
+# One full-width layer against float64, relative norm. The RG-LRU's
+# doubling scan (float32, log2 S levels of a·h + u with a < 1): a few
+# float32 roundings a level, ~1e-6; 1e-5. The chunked SSD (float32):
+# exp of differences of cumulative sums over a 256-step chunk, whose
+# magnitude reaches ~100-400 (dt·A), carries ~400 * 6e-8 = 2.4e-5
+# relative; 1e-4. The MoE dispatch and combine in float32 (TF32 off)
+# against a per-token float64 loop with the same routing and drops: sums
+# of 2048 and 1408 products, ~3e-6; 1e-5.
+RGLRU_REL = 1e-5
+SSD_REL = 1e-4
+MOE_REL = 1e-5
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -2569,9 +2632,12 @@ def paper_phase(dev, card: str, kernels: dict) -> dict:
     return launches
 
 
-def _attention_pairs(sq: int, skv: int) -> int:
-    """(q, k) pairs a causal mask keeps: row i sees keys 0 .. Skv - Sq + i."""
+def _attention_pairs(sq: int, skv: int, window: int | None = None) -> int:
+    """(q, k) pairs a causal mask keeps: row i sees keys 0 .. Skv - Sq + i,
+    and with a window only the last ``window`` of them."""
     seen = np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv)
+    if window is not None:
+        seen = np.minimum(seen, window)
     return int(seen.sum())
 
 
@@ -2714,6 +2780,97 @@ def attention_kernel_phase(dev, results: dict) -> None:
         "shape": {"b": b64, "hq": h64, "hkv": h64, "dh": dh64,
                   "dtype": "bfloat16", "causal": True},
         "library": "scaled_dot_product_attention", "by_prompt": mha}
+    results["flash_attention"]["dh256_mqa_window"] = _attention_dh256(dev,
+                                                                      gen)
+
+
+def _attention_dh256(dev, gen) -> dict:
+    """recurrentgemma-2b's local attention (MQA 10/1, dh 256, window 2048)
+    on the CUDA-core kernel, its route at that head dim: against the
+    plain version in bf16 and float32 at S 1024 and 2048 and at Sq < Skv;
+    at the two prompt lengths timed beside the plain version, SDPA with
+    the banded mask, and the bound (bf16 tensor-core peak)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import _route, flash_attention
+
+    b, hq, hkv, dh = RG_ATTN
+    w = RG_WINDOW
+    if _route(torch.bfloat16, dh) != "flash_attention":
+        raise AssertionError("bf16 at dh 256 is not routed to the CUDA-core "
+                             "kernel")
+    rows = {}
+    for sq, skv in ((1024, 1024), (2048, 2048), (512, 2048)):
+        q = torch.randn((b, hq, sq, dh), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, hkv, skv, dh), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        qpos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=dev)[None, :]
+        band = (kpos <= qpos) & (kpos > qpos - w)
+
+        def kernel(q=q, k=k, v=v):
+            return flash_attention(q, k, v, causal=True, window=w)
+
+        def plain(q=q, k=k, v=v):
+            return ref.flash_attention(q, k, v, causal=True, window=w)
+
+        label = (f"flash_attention {{}} (flash_attention) MQA dh 256 window "
+                 f"{w} q {tuple(q.shape)} kv {tuple(k.shape)}")
+        out, exp = kernel(), plain()
+        err, rel = _attention_check(label.format("bfloat16"), out, exp,
+                                    torch.bfloat16)
+        f32 = tuple(t.float() for t in (q, k, v))
+        err32, rel32 = _attention_check(label.format("float32"),
+                                        kernel(*f32), plain(*f32),
+                                        torch.float32)
+        row = {"max_abs_err": err, "rel_err": rel, "f32_max_abs_err": err32,
+               "f32_rel_err": rel32}
+        if sq == skv:
+            row.update(_measure(
+                out, exp, kernel, plain,
+                lambda q=q, k=k, v=v, band=band:
+                    F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                   enable_gqa=True),
+                _nbytes(q, k, v, out),
+                4.0 * dh * _attention_pairs(sq, skv, w) * b * hq,
+                PEAK_BF16_FLOPS))
+            row["f32_ms"] = _ms(lambda f32=f32: kernel(*f32))
+            print(f"flash_attention MQA dh 256 window {w} at {b}x{sq}: "
+                  + ", ".join(f"{key} {val:.4g}" for key, val in row.items()
+                              if key != "bound_by"))
+        rows[f"{sq}x{skv}"] = row
+        del q, k, v, out, exp, f32, band
+    return {"shape": {"b": b, "hq": hq, "hkv": hkv, "dh": dh,
+                      "dtype": "bfloat16", "causal": True, "window": w},
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "launch_counter": "flash_attention",
+            "library": "scaled_dot_product_attention, banded boolean mask",
+            "bound_peak": "989 TFLOP/s dense bf16 tensor cores, 3.35 TB/s",
+            "by_shape": rows}
+
+
+def _leaves(tree) -> list:
+    """The tensors of a parameter tree (dicts and lists, any depth)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _expected_attention_launches(cfg, batches: int) -> dict:
+    """flash_attention launches of ``batches`` prefill batches: one per
+    attention layer (attn or local_attn) per batch, on the kernel that
+    ``_route`` picks for the compute dtype and head dim."""
+    from repro_torch.kernels.flash_attention import _route
+
+    expect = {"flash_attention_tc": 0, "flash_attention": 0}
+    n_attn = sum(k in ("attn", "local_attn") for k in cfg.pattern)
+    if n_attn:
+        expect[_route(cfg.cdtype, cfg.head_dim)] = n_attn * batches
+    return expect
 
 
 def lm_serve_phase(card: str, arch: str = LM_ARCH,
@@ -2722,10 +2879,15 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
                    new_tokens: int = LM_NEW_TOKENS, *,
                    n_layers: int | None = None,
                    logit_atol: float = LM_LOGIT_ATOL,
-                   profile: bool = True, device: str = "cuda") -> int:
+                   profile: bool = True, sampled: bool = False,
+                   checks: bool = False, device: str = "cuda") -> int:
     """Serve ``arch`` at full width through the Server (``n_layers`` cuts
-    its depth), ``per_prompt`` greedy requests per prompt length; return
-    the tensor-core flash_attention launches of that run."""
+    its depth), ``per_prompt`` greedy requests per prompt length (with
+    ``sampled`` the last request of the first length at
+    ``SAMPLE_TEMPERATURE``, whose batch must then repeat bitwise from the
+    same engine seed); ``checks`` adds the float64 layer checks and the
+    prefill + decode vs forward check (:func:`lm_layer_checks`). Returns
+    the flash_attention launches (both kernels) of the served run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.launch.serve import (build_lm_engine, drive_lm,
@@ -2755,16 +2917,13 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
             backend=args.backend)
     torch.cuda.synchronize()
     cfg = engine.cfg
-    leaves = [engine.params["embed"], engine.params["final_norm"]]
-    if not cfg.tie_embeddings:
-        leaves.append(engine.params["lm_head"])
-    for layer in engine.params["layers"]:
-        for part in layer.values():
-            leaves.extend(part.values() if isinstance(part, dict) else [part])
+    leaves = _leaves(engine.params)
     n_params = sum(t.numel() for t in leaves)
-    if n_params != cfg.num_params():
+    # the reference's analytic count leaves out the conv biases
+    if n_params != cfg.num_params() + lm.uncounted_params(cfg):
         raise AssertionError(f"{n_params} parameters, config says "
-                             f"{cfg.num_params()}")
+                             f"{cfg.num_params()} + "
+                             f"{lm.uncounted_params(cfg)} conv biases")
     print(f"lm setup: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
           f"heads {cfg.n_heads}/{cfg.n_kv_heads} dh {cfg.head_dim} "
           f"{n_params / 1e9:.3f} B params, "
@@ -2774,6 +2933,8 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
     requests = [r for i, plen in enumerate(prompts)
                 for r in lm_requests(cfg, per_prompt, plen, new_tokens,
                                      seed=1 + i)]
+    if sampled:
+        requests[per_prompt - 1].temperature = SAMPLE_TEMPERATURE
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
@@ -2791,7 +2952,8 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
             raise AssertionError(f"bad generated tokens {toks}")
     batches = engine.stats["prefill_batches"]
-    expect = cfg.n_layers * batches
+    expect = _expected_attention_launches(cfg, batches)
+    got = {k: launches[k] for k in expect}
     p50, p95, p99 = latency_percentiles(outcomes)
     print(server.report())
     print(f"lm serve {arch} ({card}): {len(done)}/{len(requests)} requests, "
@@ -2800,27 +2962,94 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
           f"ms, p99 {p99:.3f} ms | peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"lm serve {arch}: kernel launches {launches}")
-    if batches != len(prompts) or launches["flash_attention_tc"] \
-            != expect or launches["flash_attention"]:
+    if batches != len(prompts) or got != expect:
         raise AssertionError(
-            f"flash_attention_tc launched {launches['flash_attention_tc']} "
-            f"times (the CUDA-core kernel {launches['flash_attention']}) "
-            f"over {batches} prefill batches; expected {cfg.n_layers} per "
-            f"batch over {len(prompts)} batches, all on the tensor cores")
+            f"flash_attention launches {got} over {batches} prefill "
+            f"batches; expected {expect} over {len(prompts)} batches")
     if engine.stats["decode_steps"] != batches * (new_tokens - 1):
         raise AssertionError(f"{engine.stats['decode_steps']} decode steps, "
                              f"expected {batches * (new_tokens - 1)}")
+    if sampled:
+        _sampled_repeats(engine, requests[:per_prompt], done[:per_prompt])
 
     lm_prefill_parity(engine, requests, done, card, prompts, per_prompt,
                       logit_atol)
+    if checks:
+        lm_layer_checks(engine, requests[-per_prompt:], card)
     if profile:
         lm_profile(engine, requests[-per_prompt:], card)
     del engine, server, outcomes, done
     gc.collect()
     torch.cuda.empty_cache()
     print(f"lm {arch} wall time ({card}): "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return launches["flash_attention_tc"]
+          f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches["flash_attention_tc"] + launches["flash_attention"]
+
+
+def _sampled_repeats(engine, batch, served) -> None:
+    """The first batch holds a request at ``SAMPLE_TEMPERATURE``: served
+    by the Server from engine seed 0, the batch must come out of
+    ``generate(seed=0)`` again token for token (the sampled request
+    too), and its sampled tokens must not all be the greedy ones."""
+    again = engine.generate(batch, seed=0)
+    for o, toks in zip(served, again):
+        if not np.array_equal(o.value, toks):
+            raise AssertionError(f"a rerun from the same seed gave {toks}, "
+                                 f"the served run {o.value}")
+    greedy = engine.generate([dataclasses.replace(batch[-1], temperature=0.0)],
+                             seed=0)[0]
+    same = int((greedy == again[-1]).sum())
+    print(f"lm sampled request (temperature {SAMPLE_TEMPERATURE}): "
+          f"{served[-1].value.tolist()} repeats from seed 0; greedy would "
+          f"give {greedy.tolist()} ({same} of {len(greedy)} tokens equal)")
+    if same == len(greedy):
+        raise AssertionError("the sampled request drew the greedy tokens")
+
+
+class _Routing:
+    """Wraps ``repro_torch.nn.moe.route`` for a ``with`` block: records
+    each MoE layer's top-k expert ids (``record``, a list to append to),
+    or replays recorded ids, sliced along the sequence by ``positions``,
+    with the weights computed from the current router logits at those
+    ids (``replay``)."""
+
+    def __init__(self, record: list | None = None,
+                 replay: list | None = None, positions=slice(None)):
+        self.record, self.replay, self.positions = record, replay, positions
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        self.moe, self.orig = moe, moe.route
+        calls = iter(self.replay) if self.replay is not None else None
+
+        def route(p, x, cfg):
+            if calls is None:
+                idx, weights = self.orig(p, x, cfg)
+                self.record.append(idx)
+                return idx, weights
+            idx = next(calls)[:, self.positions]
+            vals = torch.gather(x.float() @ p["router"].float(), -1, idx)
+            if cfg.moe.router_softmax_topk:
+                return idx, torch.softmax(vals, dim=-1)
+            return idx, torch.sigmoid(vals)
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def _routing_agreement(a: list, b: list) -> list[float]:
+    """Per MoE layer, the share of (token, choice) entries of ``a``'s
+    top-k sets that ``b``'s sets hold too."""
+    shares = []
+    for x, y in zip(a, b):
+        same = (x[..., :, None] == y[..., None, :]).any(-1)
+        shares.append(same.float().mean().item())
+    return shares
 
 
 def lm_prefill_parity(engine, requests, served, card: str,
@@ -2828,18 +3057,21 @@ def lm_prefill_parity(engine, requests, served, card: str,
                       logit_atol: float) -> None:
     """Time each prompt length's batch through both backends; the first
     batch's last-position logits must agree within ``logit_atol`` and
-    ``LM_LOGIT_REL``, and its served first tokens must be their argmax."""
+    ``LM_LOGIT_REL`` (MoE: against the reference run with the cuda run's
+    routing replayed; the free-running agreement per layer printed), and
+    its greedy requests' served first tokens must be their argmax."""
     from repro_torch.models import lm
 
     cfg = engine.cfg
-    prefill_ms, logits = {}, {}
+    prefill_ms, logits, routes = {}, {}, {}
     for i, plen in enumerate(prompts):
         toks = torch.from_numpy(np.stack(
             [r.prompt for r in requests[i * n:(i + 1) * n]])).to(engine.device)
         for backend in ("cuda", "reference"):
+            routes[backend] = []
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with torch.inference_mode():
+            with torch.inference_mode(), _Routing(record=routes[backend]):
                 out, _ = lm.prefill(engine.params, cfg, {"tokens": toks},
                                     engine.max_len, backend=backend)
             torch.cuda.synchronize()
@@ -2847,28 +3079,254 @@ def lm_prefill_parity(engine, requests, served, card: str,
             if i == 0:
                 logits[backend] = out[:, 0].float()
             del out
+        if i == 0 and cfg.moe is not None:
+            first = dict(routes)
+            with torch.inference_mode(), _Routing(replay=first["cuda"]):
+                out, _ = lm.prefill(engine.params, cfg, {"tokens": toks},
+                                    engine.max_len, backend="reference")
+            logits["replayed"] = out[:, 0].float()
+            del out
     print(f"lm prefill {cfg.name} ({card}, host clock, synchronized): "
           + ", ".join(f"{n}x{plen} {backend} {ms:.3f} ms"
                       for (plen, backend), ms in prefill_ms.items()))
-    got, exp = logits["cuda"], logits["reference"]
+    got = logits["cuda"]
     if got.shape != (n, cfg.vocab_size) or not torch.isfinite(got).all():
         raise AssertionError(f"prefill logits {tuple(got.shape)} not finite "
                              f"or of the wrong shape")
-    err = (got - exp).abs().max().item()
-    rel = ((got - exp).norm() / exp.norm()).item()
-    top1 = (got.argmax(-1) == exp.argmax(-1)).float().mean().item()
+    free = logits["reference"]
+    gated = logits.get("replayed", free)
+    err = (got - gated).abs().max().item()
+    rel = ((got - gated).norm() / gated.norm()).item()
+    top1 = (got.argmax(-1) == gated.argmax(-1)).float().mean().item()
+    what = "routing replayed" if cfg.moe is not None else "free-running"
     print(f"lm parity ({cfg.name}, {n} x {prompts[0]} prompt tokens, "
-          f"{cfg.param_dtype}): cuda vs reference prefill logits max_abs_err "
-          f"{err:.4e} (tol {logit_atol}), rel norm {rel:.4e} (tol "
-          f"{LM_LOGIT_REL}), top-1 agreement {top1:.2f}, |logit| max "
-          f"{exp.abs().max().item():.3f}, std {exp.std().item():.3f}")
+          f"{cfg.param_dtype}, {what}): cuda vs reference prefill logits "
+          f"max_abs_err {err:.4e} (tol {logit_atol}), rel norm {rel:.4e} "
+          f"(tol {LM_LOGIT_REL}), top-1 agreement {top1:.2f}, |logit| max "
+          f"{gated.abs().max().item():.3f}, std {gated.std().item():.3f}")
+    if cfg.moe is not None:
+        agree = _routing_agreement(first["cuda"], first["reference"])
+        print(f"lm routing ({cfg.name}): cuda vs reference free-running "
+              f"top-{cfg.moe.top_k} agreement per MoE layer "
+              f"{[round(a, 5) for a in agree]}; free-running logits "
+              f"max_abs_err {(got - free).abs().max().item():.4e}, rel norm "
+              f"{((got - free).norm() / free.norm()).item():.4e}")
     if err > logit_atol or rel > LM_LOGIT_REL:
         raise AssertionError("cuda prefill logits disagree with the "
                              "reference backend")
+    greedy = np.array([r.temperature == 0 for r in requests[:n]])
     served_first = np.array([o.value[0] for o in served[:n]])
-    if not (served_first == got.argmax(-1).cpu().numpy()).all():
+    if not (served_first == got.argmax(-1).cpu().numpy())[greedy].all():
         raise AssertionError("served first tokens differ from the argmax "
                              "of the same prefill")
+
+
+def lm_layer_checks(engine, batch, card: str) -> None:
+    """On the card, at full width: the RG-LRU scan, the chunked SSD and
+    the MoE dispatch and combine of the first such layer against float64
+    (``RGLRU_REL``, ``SSD_REL``, ``MOE_REL``), then prefill + one decode
+    step against the full forward (:func:`_handoff_check`)."""
+    cfg = engine.cfg
+    toks = torch.from_numpy(np.stack([r.prompt for r in batch[:2]])).to(
+        engine.device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        if "rglru" in cfg.pattern:
+            _rglru_float64_check(engine, toks)
+        if "mamba2" in cfg.pattern:
+            _ssd_float64_check(engine, toks)
+        if cfg.moe is not None:
+            _moe_float64_check(engine, toks)
+        _handoff_check(engine, toks, card)
+    torch.cuda.synchronize()
+    print(f"lm checks {cfg.name}: {time.perf_counter() - t0:.1f} s")
+
+
+def _rel_check(label: str, got: torch.Tensor, want: torch.Tensor,
+               tol: float) -> None:
+    got, want = got.double(), want.double()
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"{label}: max_abs_err {err:.3e}, rel norm {rel:.3e} (tol {tol}), "
+          f"|want| max {want.abs().max().item():.3f}")
+    if not rel <= tol:
+        raise AssertionError(f"{label}: relative norm {rel:.3e} above {tol}")
+
+
+def _layer_input(engine, i: int, toks, norm: str = "ln1"):
+    """The first layer's input hidden states normed by layer ``i``'s
+    ``norm``: a full-width activation of the model's own distribution."""
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import rms_norm
+
+    x = lm._embed_in(engine.params, engine.cfg, {"tokens": toks})
+    return rms_norm(x, engine.params["layers"][i][norm], engine.cfg.norm_eps)
+
+
+def _rglru_float64_check(engine, toks) -> None:
+    from repro_torch.nn import rglru
+    from repro_torch.nn.layers import dense
+
+    cfg = engine.cfg
+    i = cfg.pattern.index("rglru")
+    p = engine.params["layers"][i]["mixer"]
+    h = _layer_input(engine, i, toks)
+    xr = rglru._causal_conv(dense(h, p["w_x"]), p["conv_w"].to(h.dtype),
+                            p["conv_b"].to(h.dtype))
+    a, u = rglru._gates(p, xr, cfg)
+    got = rglru.linear_scan(a, u)
+    ad, ud = a.double(), u.double()
+    want = torch.empty_like(ud)
+    state = torch.zeros_like(ud[:, 0])
+    for t in range(ud.shape[1]):
+        state = ad[:, t] * state + ud[:, t]
+        want[:, t] = state
+    _rel_check(f"rglru scan, layer {i} {tuple(a.shape)} vs a float64 "
+               f"sequential recurrence", got, want, RGLRU_REL)
+
+
+def _ssd_float64_check(engine, toks) -> None:
+    from repro_torch.nn import ssd
+
+    cfg = engine.cfg
+    i = cfg.pattern.index("mamba2")
+    p = engine.params["layers"][i]["mixer"]
+    _, _, xh, dtp, bg, cg = ssd._scan_inputs(p, _layer_input(engine, i, toks),
+                                             cfg)
+    y, final = ssd._ssd_scan(xh, dtp, p["A_log"], bg, cg, cfg)
+    b, l, h, _ = xh.shape
+    a = -torch.exp(p["A_log"].double())
+    bh = ssd._heads_of_groups(bg.double(), h)
+    ch = ssd._heads_of_groups(cg.double(), h)
+    xd, dtd = xh.double(), dtp.double()
+    state = torch.zeros((b, h, xh.shape[-1], bg.shape[-1]),
+                        dtype=torch.float64, device=xh.device)
+    want = torch.empty_like(xd)
+    for t in range(l):
+        state = state * torch.exp(dtd[:, t] * a)[..., None, None] \
+            + (dtd[:, t, :, None] * xd[:, t])[..., None] * bh[:, t, :, None, :]
+        want[:, t] = torch.einsum("bhpk,bhk->bhp", state, ch[:, t])
+    _rel_check(f"ssd chunked scan, layer {i} x {tuple(xh.shape)} vs a "
+               f"float64 state recurrence", y, want, SSD_REL)
+    _rel_check("ssd final state", final, state, SSD_REL)
+
+
+def _moe_float64_check(engine, toks) -> None:
+    """The first MoE layer in float32 (its weights cast; TF32 off) against
+    a per-token float64 loop that takes the same top-k ids and drops an
+    entry by the reference's rule (per row and expert, entries in (token,
+    choice) order past the capacity). Row 0 is a prompt; row 1 repeats
+    its first token, so every token of it picks the same experts and each
+    of them overflows its capacity. Checked at the first 32 tokens of
+    each row and 32 tokens, evenly spread, of those that lost a choice."""
+    import torch.nn.functional as F
+
+    from repro_torch.nn import moe
+
+    cfg = engine.cfg
+    m = cfg.moe
+    i = next(j for j in range(cfg.n_layers) if cfg.is_moe_layer(j))
+    p = engine.params["layers"][i]["moe"]
+    toks = torch.stack([toks[0], toks[0, :1].expand(toks.shape[1])])
+    h = _layer_input(engine, i, toks, "ln2").float()
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float()) for k, v in p.items()}
+    b, s, _ = h.shape
+    top_idx, _ = moe.route(p32, h, cfg)
+    got = moe.moe_apply(p32, h, cfg)
+    del p32
+    _, _, _, keep_tok, cap = moe.dispatch(top_idx, cfg, s)
+    ids = top_idx.cpu().numpy()
+    drop = np.zeros(ids.shape, bool)
+    for r in range(b):
+        flat = ids[r].reshape(-1)
+        for e in range(m.num_experts):
+            drop[r].reshape(-1)[np.nonzero(flat == e)[0][cap:]] = True
+    if not np.array_equal(drop, ~keep_tok.cpu().numpy().reshape(ids.shape)):
+        raise AssertionError("the dispatch drops other entries than the "
+                             "capacity rule")
+
+    f64: dict = {}   # each expert's weights in float64, made at first use
+
+    def swiglu(key, x, *weights):
+        if key not in f64:
+            f64[key] = [w.double() for w in weights]
+        w_gate, w_up, w_down = f64[key]
+        return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+    lost = list(zip(*np.nonzero(drop.any(-1))))
+    if not lost:
+        raise AssertionError("no entry dropped: the overflowing row did not "
+                             "overflow")
+    spread = [lost[j] for j in np.linspace(0, len(lost) - 1, 32).astype(int)]
+    tokens = sorted(set(spread) | {(r, t) for r in range(b)
+                                   for t in range(32)})
+    want, have = [], []
+    for r, t in tokens:
+        x = h[r, t].double()
+        vals = (x @ p["router"].double())[top_idx[r, t]]
+        w = torch.softmax(vals, -1) if m.router_softmax_topk \
+            else torch.sigmoid(vals)
+        y = torch.zeros_like(x)
+        for c, e in enumerate(ids[r, t]):
+            if not drop[r, t, c]:
+                y += w[c] * swiglu(int(e), x, p["w_gate"][e], p["w_up"][e],
+                                   p["w_down"][e])
+        for j in range(m.n_shared_experts):
+            sp = p[f"shared_{j}"]
+            y += swiglu(f"shared_{j}", x, sp["w_gate"], sp["w_up"],
+                        sp["w_down"])
+        want.append(y)
+        have.append(got[r, t])
+    print(f"moe layer {i} ({cfg.name}): capacity {cap} of {s} x "
+          f"{m.top_k} entries a row, {int(drop.sum())} of {drop.size} "
+          f"entries dropped ({int(drop.any(-1).sum())} tokens lose a choice)")
+    del f64
+    _rel_check(f"moe dispatch/combine at {len(tokens)} tokens vs a "
+               f"per-token float64 loop", torch.stack(have),
+               torch.stack(want), MOE_REL)
+
+
+def _handoff_check(engine, toks, card: str) -> None:
+    """Prefill over the prompt and one decode step must give the full
+    forward's logits at the last prompt position and the next one
+    (``LM_LOGIT_ATOL``, ``LM_LOGIT_REL``): the recurrent states and caches
+    handed from prefill to decode. MoE at no-drop capacity (capacity
+    factor = experts), as tests/test_lm_consistency.py, with the forward's
+    routing replayed, so that a near tie decided otherwise by the two
+    paths' bf16 roundings moves no choice."""
+    from repro_torch.models import lm
+
+    cfg = engine.cfg
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    b, s = toks.shape
+    nxt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, 1)).astype(np.int32)).to(toks.device)
+    seq = torch.cat([toks, nxt], dim=1)
+    rec: list = []
+    with _Routing(record=rec):
+        full = lm.forward(engine.params, cfg, {"tokens": seq})
+    with _Routing(replay=rec, positions=slice(0, s)):
+        first, caches = lm.prefill(engine.params, cfg, {"tokens": toks},
+                                   engine.max_len)
+    with _Routing(replay=rec, positions=slice(s, s + 1)):
+        step, _ = lm.decode_step(engine.params, cfg,
+                                 {"tokens": nxt, "pos": s}, caches)
+    for label, got, want in (("prefill", first[:, 0], full[:, s - 1]),
+                             ("decode", step[:, 0], full[:, s])):
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        rel = ((got - want).norm() / want.norm()).item()
+        print(f"lm handoff ({cfg.name}, {card}): {label} at position "
+              f"{s - 1 if label == 'prefill' else s} of a {s}-token prompt vs "
+              f"the forward: max_abs_err {err:.4e} (tol {LM_LOGIT_ATOL}), "
+              f"rel norm {rel:.4e} (tol {LM_LOGIT_REL})")
+        if err > LM_LOGIT_ATOL or rel > LM_LOGIT_REL:
+            raise AssertionError(f"{cfg.name}: {label} logits disagree with "
+                                 f"the full forward")
+    del full, caches
 
 
 def _profile(fn, label: str, card: str) -> None:
@@ -2981,6 +3439,15 @@ def main() -> None:
     flash["command_r_launches"] = lm_serve_phase(
         card, COMMAND_R_ARCH, prompts=(1024,), per_prompt=2, new_tokens=5,
         n_layers=COMMAND_R_LAYERS, profile=False)
+    flash["qwen2_moe_launches"] = lm_serve_phase(
+        card, QWEN_MOE_ARCH, prompts=(1024,), sampled=True, checks=True)
+    flash["llama4_scout_launches"] = lm_serve_phase(
+        card, LLAMA4_ARCH, prompts=(1024,), per_prompt=2, new_tokens=5,
+        n_layers=LLAMA4_LAYERS, checks=True)
+    flash["recurrentgemma_launches"] = lm_serve_phase(
+        card, RG_ARCH, prompts=(1024, 2048), checks=True)
+    flash["mamba2_launches"] = lm_serve_phase(
+        card, MAMBA_ARCH, prompts=(1024,), checks=True)
     for name, row in kernels.items():       # every row, flash_attention's too
         row["train_step_launches"] = train_launches.get(name, 0)
         row["stream_launches"] = stream_launches.get(name, 0)

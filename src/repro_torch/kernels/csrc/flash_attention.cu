@@ -3,8 +3,9 @@
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas kernel with a (bq x bk) logit tile and a (bq x dh) f32 VMEM
 // accumulator, walking Skv blockwise with a running max and denominator),
-// for float32 and for head dims other than 64 and 128; bfloat16 at dh 64
-// or 128 goes to flash_attention_tc.cu (flash_attention.py::_route).
+// for float32 and for head dims other than 64 and 128 (up to 256);
+// bfloat16 at dh 64 or 128 goes to flash_attention_tc.cu
+// (flash_attention.py::_route).
 //
 // Semantics, as the TPU kernel: q (B, Hq, Sq, dh), k and v (B, Hkv, Skv,
 // dh), Hq % Hkv == 0 and query head h reads kv head h / (Hq / Hkv) (GQA).
@@ -26,10 +27,16 @@
 // 4x4 sub-tile per thread (rows ty + 16i, columns tx + 16j), mask, running
 // max and denominator (a thread's rows are its own, reduced over the 16
 // threads of a half-warp with shuffles), P into shared memory, then V into
-// the same buffer K used and O += P V with a 4 x (dh / 16) accumulator per
-// thread in registers. kv tiles wholly above the causal diagonal or wholly
-// before the window are skipped; the ragged tails of Sq, Skv and dh are
-// masked, so no length has to be a multiple of 64.
+// the same buffer K used and O += P V with a 4 x (MAX_DH / 16) accumulator
+// per thread in registers. kv tiles wholly above the causal diagonal or
+// wholly before the window are skipped; the ragged tails of Sq, Skv and dh
+// are masked, so no length has to be a multiple of 64.
+//
+// The kernel is a template on the largest head dim it takes: MAX_DH 128
+// (dh <= 128: 32 accumulators a thread, two blocks an SM) and MAX_DH 256
+// (128 < dh <= 256, recurrentgemma's MQA at dh 256: 64 accumulators a
+// thread, one block an SM; shared memory (64 + 64) * 257 * 4 + 64 * 65 * 4
+// = 148 KB of the 227 KB a block may have).
 #include <cfloat>
 
 #include <cuda_bf16.h>
@@ -40,8 +47,8 @@ namespace {
 constexpr int BQ = 64;        // q rows per block
 constexpr int BK = 64;        // kv rows per tile
 constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int MAX_DH = 128;
-constexpr int DC = MAX_DH / 16;  // accumulator columns per thread
+constexpr int MAX_DH_SMALL = 128;
+constexpr int MAX_DH_LARGE = 256;
 constexpr float MASKED = -0.7f * FLT_MAX;
 
 enum Dtype : int { kFloat32 = 0, kBFloat16 = 1 };
@@ -81,12 +88,13 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+template <typename T, int MAX_DH>
+__global__ void __launch_bounds__(THREADS, MAX_DH <= MAX_DH_SMALL ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int hq,
                        int hkv, int sq, int skv, int dh, float scale,
                        int causal, int window) {
+  constexpr int DC = MAX_DH / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   const int ld = dh + 1;       // odd row stride: column reads hit 16 banks
   float* qs = smem;            // [BQ][ld]
@@ -204,40 +212,51 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int MAX_DH>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int hq, int hkv, int sq, int skv, int dh, float scale, int causal,
            int window, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(BQ + BK) * (dh + 1) + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_attention_kernel<T, MAX_DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + BQ - 1) / BQ, b * hq);
-  flash_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_attention_kernel<T, MAX_DH><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv, dh,
       scale, causal, window);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
+              int hq, int hkv, int sq, int skv, int dh, float scale,
+              int causal, int window, cudaStream_t stream) {
+  if (dh <= MAX_DH_SMALL)
+    return launch<T, MAX_DH_SMALL>(q, k, v, out, b, hq, hkv, sq, skv, dh,
+                                   scale, causal, window, stream);
+  return launch<T, MAX_DH_LARGE>(q, k, v, out, b, hq, hkv, sq, skv, dh,
+                                 scale, causal, window, stream);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; window < 0 means no window. The wrapper
-// guarantees contiguous tensors, Hq % Hkv == 0, 1 <= dh <= 128 and
+// guarantees contiguous tensors, Hq % Hkv == 0, 1 <= dh <= 256 and
 // B * Hq <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int hq,
                                       int hkv, int sq, int skv, int dh,
                                       float scale, int causal, int window,
                                       int dtype, cudaStream_t stream) {
-  if (dh < 1 || dh > MAX_DH) return (int)cudaErrorInvalidValue;
+  if (dh < 1 || dh > MAX_DH_LARGE) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv, dh,
-                                 scale, causal, window, stream);
+    return launch_dh<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv, dh,
+                                    scale, causal, window, stream);
   if (dtype == kFloat32)
-    return launch<float>(q, k, v, out, b, hq, hkv, sq, skv, dh, scale, causal,
-                         window, stream);
+    return launch_dh<float>(q, k, v, out, b, hq, hkv, sq, skv, dh, scale,
+                            causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }

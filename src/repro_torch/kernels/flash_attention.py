@@ -9,8 +9,9 @@ CUDA kernels chosen statically by :func:`_route`:
                           TMA, mbarriers); P is rounded to bfloat16 before
                           P V, as in the Pallas kernel.
   ``flash_attention``     ``csrc/flash_attention.cu``: everything else
-                          (float32, other head dims up to 128), float32
-                          FMA on the CUDA cores.
+                          (float32, other head dims up to 256, e.g.
+                          recurrentgemma's 256), float32 FMA on the CUDA
+                          cores.
 
 Each source's header says what bounds it. CPU tensors take the plain
 version in ``ref.py``; CUDA tensors launch a kernel or raise. Unlike the
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _lib, ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype codes
 TC_HEAD_DIMS = (64, 128)
 
@@ -41,7 +42,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, Sq, Dh), k/v (B, Hkv, Skv, Dh), all float32 or all
-    bfloat16, Hq % Hkv == 0, Dh <= 128 -> (B, Hq, Sq, Dh) in q's dtype.
+    bfloat16, Hq % Hkv == 0, Dh <= 256 -> (B, Hq, Sq, Dh) in q's dtype.
 
     Query row i sits at position Skv - Sq + i; ``window`` keeps keys
     within [pos - window + 1, pos]. ``scale`` defaults to Dh ** -0.5. A

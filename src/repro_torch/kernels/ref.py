@@ -116,6 +116,26 @@ def fused_gnn_indexed(index, h: torch.Tensor, w: torch.Tensor, *,
     return _activate(agg @ w.float(), activation).to(h.dtype)
 
 
+def edge_entries(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                 edge_valid: torch.Tensor, n: int):
+    """(dst, src) global row ids (int64) of every valid slot (i, j, e) of
+    (S_dst, S_src, E) edge lists with local ids in shards of ``n`` rows,
+    in (i, j, e) order."""
+    ii, jj, ee = edge_valid.nonzero(as_tuple=True)
+    return (ii * n + edge_dst[ii, jj, ee].long(),
+            jj * n + edge_src[ii, jj, ee].long())
+
+
+def index_entries(index):
+    """(dst, src) global row ids (int64) of a ``csr.gather_index``'s
+    entries, in the index's order."""
+    rows = index.row_ptr.numel() - 1
+    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
+    dst = torch.repeat_interleave(
+        torch.arange(rows, device=index.src.device), counts)
+    return dst, index.src.long()
+
+
 def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                edge_valid: torch.Tensor, h: torch.Tensor, *,
                op: str = "max") -> torch.Tensor:
@@ -131,12 +151,58 @@ def seg_gather(edge_src: torch.Tensor, edge_dst: torch.Tensor,
         raise ValueError(f"unknown op {op}")
     s_dst = edge_src.shape[0]
     _, n, d = h.shape
-    ii, jj, ee = edge_valid.nonzero(as_tuple=True)
-    src = jj * n + edge_src[ii, jj, ee].long()
-    dst = ii * n + edge_dst[ii, jj, ee].long()
+    dst, src = edge_entries(edge_src, edge_dst, edge_valid, n)
     out = _by_columns(lambda hc: _reduce(hc[src], dst, s_dst * n, op),
                       h.reshape(-1, d).float(), src.numel())
     return out.reshape(s_dst, n, d).to(h.dtype)
+
+
+def seg_gather_max_vjp(dst: torch.Tensor, src: torch.Tensor,
+                       h: torch.Tensor, rows: int,
+                       grad: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``seg_gather``'s max with respect to h (S_src, n,
+    D) for edges (``dst``, ``src``: global rows, see :func:`edge_entries`)
+    into ``rows`` destination rows, given the output's gradient ``grad``
+    (rows, D): the reference's tie rule. The reference scatter-maxes each
+    (destination shard, source shard) pair, splitting a destination's
+    gradient evenly between the tied slots of one pair, then folds the
+    source shards in order with ``jnp.maximum``, which gives each side ½
+    at a tie. So of t source shards tied at the maximum, in shard order,
+    the first gets 0.5^(t-1) and the r-th (r >= 2) 0.5^(t-r+1), each
+    divided evenly among its own tied entries (a duplicate edge is two).
+    A destination whose maximum is not finite gets no gradient (the
+    forward gives 0 there). Column blocks as :func:`_by_columns`."""
+    s_src, n, d = h.shape
+    hf = h.reshape(-1, d).float()
+    gf = grad.reshape(rows, d).float()
+    # one key per (destination row, source shard): sorted, so a row's keys
+    # are contiguous and in source-shard order (the fold order)
+    keys, inv = torch.unique(dst * s_src + src // n, return_inverse=True)
+    key_row = keys // s_src
+    start = torch.searchsorted(key_row, key_row, right=False)
+    end = torch.searchsorted(key_row, key_row, right=True) - 1
+    out = torch.zeros_like(hf)
+    per = max(1, PLAIN_BLOCK_ELEMENTS // max(src.numel(), 1))
+    for c0 in range(0, d, per):
+        vals = hf[src, c0:c0 + per]
+        best = torch.full((rows, vals.shape[1]), float("-inf"),
+                          device=h.device)
+        best.scatter_reduce_(0, dst[:, None].expand_as(vals), vals,
+                             reduce="amax", include_self=True)
+        best = best[dst]
+        tied = (vals == best) & torch.isfinite(best)
+        n_tied = torch.zeros((keys.numel(), vals.shape[1]), dtype=torch.int64,
+                             device=h.device).index_add_(0, inv, tied.long())
+        has = (n_tied > 0).long()
+        incl = torch.cumsum(has, dim=0)
+        excl = incl - has
+        before = excl - excl[start]            # tied shards before, same row
+        after = incl[end] - incl               # tied shards after, same row
+        weight = torch.pow(0.5, (after + (before > 0).long()).float()) \
+            / n_tied.clamp(min=1)
+        g = torch.where(tied, gf[dst, c0:c0 + per] * weight[inv], 0.0)
+        out[:, c0:c0 + per].index_add_(0, src, g)
+    return out.reshape(h.shape).to(h.dtype)
 
 
 def _reduce(vals: torch.Tensor, dst: torch.Tensor, rows: int,
@@ -163,10 +229,7 @@ def seg_gather_indexed(index, h: torch.Tensor, *,
         raise ValueError(f"unknown op {op}")
     _, n, d = h.shape
     rows = index.row_ptr.numel() - 1
-    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).long()
-    dst = torch.repeat_interleave(
-        torch.arange(rows, device=h.device), counts)
-    src = index.src.long()
+    dst, src = index_entries(index)
     out = _by_columns(lambda hc: _reduce(hc[src], dst, rows, op),
                       h.reshape(-1, d).float(), src.numel())
     return out.reshape(rows // n, n, d).to(h.dtype)

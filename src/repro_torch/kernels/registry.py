@@ -101,6 +101,26 @@ class _PlainVJP(torch.autograd.Function):
         return (None, None, *(next(grads) if w else None for w in wanted))
 
 
+class _GatherMaxVJP(torch.autograd.Function):
+    """Forward ``kernel(h)`` (``seg_gather``'s max); backward
+    ``ref.seg_gather_max_vjp`` over the edges that ``entries()`` lists:
+    the reference's rule for ties between source shards (autograd of a
+    scatter-reduce would split every tie evenly)."""
+
+    @staticmethod
+    def forward(ctx, kernel, entries, rows, h):
+        ctx.entries, ctx.rows = entries, rows
+        ctx.save_for_backward(h)
+        return kernel(h)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, = ctx.saved_tensors
+        dst, src = ctx.entries()
+        return None, None, None, ref.seg_gather_max_vjp(dst, src, h,
+                                                        ctx.rows, grad)
+
+
 def _with_plain_vjp(kernel, plain, *inputs):
     """``kernel(*inputs)``, differentiable: the port of the reference's
     ``_with_ref_vjp``. The reference has no backward kernels; its
@@ -115,13 +135,33 @@ def _with_plain_vjp(kernel, plain, *inputs):
     return kernel(*inputs)
 
 
+def _gather_max(kernel, edge_src, edge_dst, edge_valid, h, index):
+    """``kernel(h)`` (a max over the edges, or over ``index``'s entries
+    where the caller keeps it), differentiable with the reference's tie
+    rule (:class:`_GatherMaxVJP`)."""
+    if not (torch.is_grad_enabled() and h.requires_grad):
+        return kernel(h)
+    n = h.shape[1]
+    if index is None:
+        def entries():
+            return ref.edge_entries(edge_src, edge_dst, edge_valid, n)
+        rows = edge_src.shape[0] * n
+    else:
+        def entries():
+            return ref.index_entries(index)
+        rows = index.row_ptr.numel() - 1
+    return _GatherMaxVJP.apply(kernel, entries, rows, h)
+
+
 class CudaBackend:
     """The CUDA kernels (plain versions for CPU tensors).
 
     The GNN ops are differentiable through :func:`_with_plain_vjp`. Where
     the caller keeps the graph's CSR index, the backward walks it
     (``ref.spmm_indexed``, ``ref.fused_gnn_indexed``,
-    ``ref.seg_gather_indexed``), the same function as the dense plain
+    ``ref.seg_gather_indexed``; the max's backward is
+    ``ref.seg_gather_max_vjp`` over the index's or the edge lists'
+    entries), the same function as the dense plain
     version: on the card a gather and scatter over the nonzeros instead
     of a product over the (S, S, n, n) grid."""
 
@@ -168,8 +208,13 @@ class CudaBackend:
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
                          op="max", index=None):
-        # max: a destination's gradient goes to the sources at its
-        # maximum, split evenly between ties (scatter_reduce's rule)
+        def kernel(h):
+            return seg_gather_aggregate(edge_src, edge_dst, edge_valid, h,
+                                        op=op, index=index)
+
+        if op == "max":
+            return _gather_max(kernel, edge_src, edge_dst, edge_valid, h,
+                               index)
         if index is None:
             def plain(h):
                 return ref.seg_gather(edge_src, edge_dst, edge_valid, h,
@@ -177,9 +222,7 @@ class CudaBackend:
         else:
             def plain(h):
                 return ref.seg_gather_indexed(index, h, op=op)
-        return _with_plain_vjp(
-            lambda h: seg_gather_aggregate(edge_src, edge_dst, edge_valid, h,
-                                           op=op, index=index), plain, h)
+        return _with_plain_vjp(kernel, plain, h)
 
     def attention(self, q, k, v, *, causal=True, window=None, scale=None):
         return flash_attention(q, k, v, causal=causal, window=window,
@@ -208,8 +251,15 @@ class ReferenceBackend:
 
     def gather_aggregate(self, edge_src, edge_dst, edge_valid, h, *,
                          op="max", index=None):
-        # the plain version of the whole function: the index is not used
-        return ref.seg_gather(edge_src, edge_dst, edge_valid, h, op=op)
+        # the plain version of the whole function: the index is not used;
+        # the max's backward is the reference's tie rule, as on cuda
+        def plain(h):
+            return ref.seg_gather(edge_src, edge_dst, edge_valid, h, op=op)
+
+        if op == "max":
+            return _gather_max(plain, edge_src, edge_dst, edge_valid, h,
+                               None)
+        return plain(h)
 
     def attention(self, q, k, v, *, causal=True, window=None, scale=None):
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,

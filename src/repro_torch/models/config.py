@@ -4,8 +4,8 @@ A single ModelConfig describes every family the reference supports
 (dense, MoE, VLM, audio, hybrid, SSM) via a per-layer block pattern plus
 optional sub-configs; the fields and defaults are the reference's, so a
 config crosses between the two packages field for field. The port runs
-the dense attention LMs (``models/lm.py`` raises for the rest). The
-configs live in ``repro_torch/configs/<arch>.py``.
+every block kind (``models/lm.py`` raises for embedding inputs, M-RoPE
+and codebooks). The configs live in ``repro_torch/configs/<arch>.py``.
 """
 from __future__ import annotations
 

@@ -1,11 +1,14 @@
-"""Decoder LM for the dense attention architectures (qwen3-8b, qwen2.5-3b).
+"""Decoder LM: the port of the reference's unified ``models/lm.py``.
 
-The port of the reference's unified ``models/lm.py`` for configs whose
-every block is ``attn`` with a dense MLP, token inputs and one codebook;
-any other config raises ``NotImplementedError`` (ROADMAP.md, Queue 1
-item 7). Parameters are the reference's tree — dicts and lists with the
-same key names, shapes and dtypes — so they cross between the packages
-through :func:`params_from_numpy`.
+One structure function describes every block kind the reference's
+decoder has — ``attn``, ``local_attn`` (a sliding window of
+``cfg.local_window``), ``rglru`` (RecurrentGemma) and ``mamba2`` (SSD) —
+with a dense MLP, a MoE layer (``cfg.is_moe_layer``) or none
+(``mlp_kind="none"``) after it. Configs with token inputs, one codebook
+and plain RoPE run; the rest raise ``NotImplementedError`` (ROADMAP.md,
+Queue 1 items 7.5–7.6). Parameters are the reference's tree — dicts and
+lists with the same key names, shapes and dtypes — so they cross between
+the packages through :func:`params_from_numpy`.
 
 Entry points:
     init_params(cfg, gen)                       # on gen.device
@@ -15,8 +18,8 @@ Entry points:
 
 Prefill and forward run attention through the kernel registry
 (``backend=``: ``cuda`` by default, or ``reference``). The dense
-projections, MLP, norms, RoPE, head and decode attention are plain
-PyTorch, as the reference leaves them to XLA.
+projections, MLP, MoE, recurrences, norms, RoPE, head and decode
+attention are plain PyTorch, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -30,25 +33,31 @@ from repro_torch.nn.attention import (attn_apply, attn_cache_struct,
                                       attn_decode, attn_prefill_cache,
                                       attn_struct)
 from repro_torch.nn.layers import init_leaf, mlp_apply, mlp_struct, rms_norm
+from repro_torch.nn.moe import moe_apply, moe_struct
+from repro_torch.nn.rglru import (rglru_apply, rglru_cache_struct,
+                                  rglru_decode, rglru_struct)
+from repro_torch.nn.ssd import (ssd_cache_struct, ssd_decode,
+                                ssd_prefill_cache, ssd_struct)
+
+BLOCK_KINDS = ("attn", "local_attn", "rglru", "mamba2")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless the port runs ``cfg``."""
     missing = []
-    if set(cfg.pattern) != {"attn"}:
-        missing.append(f"block kinds {sorted(set(cfg.pattern) - {'attn'})}")
-    if cfg.moe is not None:
-        missing.append("MoE layers")
     if cfg.input_mode != "tokens":
-        missing.append(f"input_mode {cfg.input_mode!r}")
-    if cfg.n_codebooks != 1:
-        missing.append("codebooks")
+        missing.append(f"input_mode {cfg.input_mode!r} (item 7.5)")
     if cfg.rope_kind != "rope":
-        missing.append(f"rope_kind {cfg.rope_kind!r}")
+        missing.append(f"rope_kind {cfg.rope_kind!r} (item 7.5)")
+    if cfg.n_codebooks != 1:
+        missing.append("codebooks (item 7.6)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue 1 item 7)")
+            f"Queue 1)")
+    unknown = set(cfg.pattern) - set(BLOCK_KINDS)
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
 
 
 # ---------------------------------------------------------------------------
@@ -56,14 +65,23 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _layer_struct(leaf, i: int, cfg: ModelConfig) -> dict:
+    kind = cfg.pattern[i]
     pre = f"layers.{i}"
     p: dict[str, Any] = {"ln1": leaf(f"{pre}.ln1", (cfg.d_model,), ("embed",),
                                      init="zeros")}
-    p["attn"] = attn_struct(leaf, f"{pre}.attn", cfg)
+    if kind in ("attn", "local_attn"):
+        p["attn"] = attn_struct(leaf, f"{pre}.attn", cfg)
+    elif kind == "rglru":
+        p["mixer"] = rglru_struct(leaf, f"{pre}.rglru", cfg)
+    else:
+        p["mixer"] = ssd_struct(leaf, f"{pre}.ssd", cfg)
     if cfg._layer_has_mlp(i):
         p["ln2"] = leaf(f"{pre}.ln2", (cfg.d_model,), ("embed",), init="zeros")
-        p["mlp"] = mlp_struct(leaf, f"{pre}.mlp", cfg.d_model, cfg.d_ff,
-                              cfg.mlp_kind)
+        if cfg.is_moe_layer(i):
+            p["moe"] = moe_struct(leaf, f"{pre}.moe", cfg)
+        else:
+            p["mlp"] = mlp_struct(leaf, f"{pre}.mlp", cfg.d_model, cfg.d_ff,
+                                  cfg.mlp_kind)
     return p
 
 
@@ -77,6 +95,20 @@ def param_struct(cfg: ModelConfig, leaf) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = leaf("lm_head", (d, v), ("embed", "vocab"))
     return p
+
+
+def uncounted_params(cfg: ModelConfig) -> int:
+    """Parameters that the reference's analytic ``cfg.num_params()``
+    leaves out: the conv biases of the rglru and mamba2 blocks. A
+    parameter tree holds ``num_params() + uncounted_params()`` numbers."""
+    total = 0
+    for kind in cfg.pattern:
+        if kind == "rglru":
+            total += cfg.rglru.lru_width or cfg.d_model
+        elif kind == "mamba2":
+            total += cfg.ssm.expand * cfg.d_model \
+                + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    return total
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -133,24 +165,48 @@ def _positions(batch, b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def _mlp_residual(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _window(cfg: ModelConfig, kind: str) -> int | None:
+    return cfg.local_window if kind == "local_attn" else None
+
+
+def _ffn_residual(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "ln2" not in lp:
         return x
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + cfg.residual_scale * mlp_apply(lp["mlp"], h, cfg.mlp_kind)
+    ffn = moe_apply(lp["moe"], h, cfg) if "moe" in lp \
+        else mlp_apply(lp["mlp"], h, cfg.mlp_kind)
+    return x + cfg.residual_scale * ffn
 
 
-def forward(params, cfg: ModelConfig, batch, *, backend=None) -> torch.Tensor:
-    """Full-sequence forward -> logits (B,S,V)."""
+def _prefill_layers(params, cfg: ModelConfig, batch, max_len, backend):
+    """The layers over a whole sequence: (hidden states (B,S,D), per-layer
+    decode caches, or None when ``max_len`` is None)."""
     check_supported(cfg)
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     positions = _positions(batch, b, s, x.device)
-    for lp in params["layers"]:
+    caches = []
+    for kind, lp in zip(cfg.pattern, params["layers"]):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + cfg.residual_scale * attn_apply(lp["attn"], h, cfg, positions,
-                                                backend=backend)
-        x = _mlp_residual(lp, x, cfg)
+        if kind in ("attn", "local_attn"):
+            window = _window(cfg, kind)
+            mix, (k, v) = attn_apply(lp["attn"], h, cfg, positions,
+                                     window=window, return_kv=True,
+                                     backend=backend)
+            cache = None if max_len is None \
+                else attn_prefill_cache(k, v, max_len, window)
+        elif kind == "rglru":
+            mix, cache = rglru_apply(lp["mixer"], h, cfg, return_state=True)
+        else:
+            mix, cache = ssd_prefill_cache(lp["mixer"], h, cfg)
+        caches.append(cache)
+        x = _ffn_residual(lp, x + cfg.residual_scale * mix, cfg)
+    return x, (None if max_len is None else caches)
+
+
+def forward(params, cfg: ModelConfig, batch, *, backend=None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B,S,V)."""
+    x, _ = _prefill_layers(params, cfg, batch, None, backend)
     return _logits_out(params, cfg, x)
 
 
@@ -161,24 +217,21 @@ def forward(params, cfg: ModelConfig, batch, *, backend=None) -> torch.Tensor:
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                  device: torch.device | str | None = None) -> list:
     check_supported(cfg)
-    return [attn_cache_struct(cfg, batch, max_len, None, device)
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for kind in cfg.pattern:
+        if kind in ("attn", "local_attn"):
+            caches.append(attn_cache_struct(cfg, batch, max_len,
+                                            _window(cfg, kind), device))
+        elif kind == "rglru":
+            caches.append(rglru_cache_struct(cfg, batch, device))
+        else:
+            caches.append(ssd_cache_struct(cfg, batch, device))
+    return caches
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int, *, backend=None):
     """Run the prompt, return (last-position logits (B,1,V), caches)."""
-    check_supported(cfg)
-    x = _embed_in(params, cfg, batch)
-    b, s = x.shape[0], x.shape[1]
-    positions = _positions(batch, b, s, x.device)
-    caches = []
-    for lp in params["layers"]:
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, (k, v) = attn_apply(lp["attn"], h, cfg, positions,
-                                 return_kv=True, backend=backend)
-        caches.append(attn_prefill_cache(k, v, max_len, None))
-        x = x + cfg.residual_scale * mix
-        x = _mlp_residual(lp, x, cfg)
+    x, caches = _prefill_layers(params, cfg, batch, max_len, backend)
     return _logits_out(params, cfg, x[:, -1:]), caches
 
 
@@ -187,9 +240,14 @@ def decode_step(params, cfg: ModelConfig, batch, caches):
     caches in place; returns (logits (B,1,V), caches)."""
     pos = int(batch["pos"])
     x = _embed_in(params, cfg, batch)
-    for lp, cache in zip(params["layers"], caches):
+    for kind, lp, cache in zip(cfg.pattern, params["layers"], caches):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, _ = attn_decode(lp["attn"], h, cfg, cache, pos)
-        x = x + cfg.residual_scale * mix
-        x = _mlp_residual(lp, x, cfg)
+        if kind in ("attn", "local_attn"):
+            mix, _ = attn_decode(lp["attn"], h, cfg, cache, pos,
+                                 window=_window(cfg, kind))
+        elif kind == "rglru":
+            mix, _ = rglru_decode(lp["mixer"], h, cfg, cache)
+        else:
+            mix, _ = ssd_decode(lp["mixer"], h, cfg, cache)
+        x = _ffn_residual(lp, x + cfg.residual_scale * mix, cfg)
     return _logits_out(params, cfg, x), caches

@@ -1,4 +1,4 @@
-"""Attention for the dense LMs: GQA, RoPE, qk-norm, QKV bias, local
+"""Attention for the LMs: GQA, RoPE, qk-norm, QKV bias, local
 windows, full-sequence (prefill) attention and ring-buffer decode caches.
 
 Full-sequence attention goes through the kernel registry's ``attention``

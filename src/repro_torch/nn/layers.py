@@ -21,11 +21,21 @@ Leaf = Callable[..., torch.Tensor]
 
 
 def init_leaf(gen: torch.Generator, dtype: torch.dtype) -> Leaf:
-    """Leaves on ``gen.device`` in ``dtype``: ``normal`` (std
-    1/sqrt(fan_in) unless ``scale``), ``embed`` (std 0.02 unless
-    ``scale``), ``zeros``. Normals are drawn in float32 and then cast,
-    as the reference does."""
+    """Leaves on ``gen.device`` in ``dtype``, with the reference's
+    distributions: ``normal`` (std 1/sqrt(fan_in) unless ``scale``),
+    ``embed`` (std 0.02 unless ``scale``), ``zeros``, ``ones``, and in
+    float32 whatever ``dtype``, as the reference keeps them: ``ssm_A`` (log of
+    Uniform[1, 16]), ``dt_bias`` (softplus⁻¹ of dt, log dt uniform in
+    [log dt_min, log dt_max], ``scale`` = (dt_min, dt_max)) and
+    ``lru_lambda`` (Λ with a = exp(-8 softplus(Λ)) uniform in [0.9,
+    0.999]). Normals are drawn in float32 and then cast, as the
+    reference does."""
     device = gen.device
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+        return u.mul_(hi - lo).add_(lo)
 
     def leaf(name, shape, axes, init="normal", scale=None):
         if init in ("normal", "embed"):
@@ -39,9 +49,19 @@ def init_leaf(gen: torch.Generator, dtype: torch.dtype) -> Leaf:
             return x.mul_(std).to(dtype)
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=device)
-        raise NotImplementedError(
-            f"init {init!r} ({name}) belongs to a block kind that is not "
-            f"ported yet (ROADMAP.md, Queue 1 item 7)")
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=device)
+        if init == "ssm_A":
+            return torch.log(uniform(shape, 1.0, 16.0))
+        if init == "dt_bias":
+            lo, hi = scale or (0.001, 0.1)
+            dt = torch.exp(uniform(shape, math.log(lo), math.log(hi)))
+            return dt + torch.log(-torch.expm1(-dt))
+        if init == "lru_lambda":
+            # c * softplus(Λ) = -log a with c = 8
+            x = -torch.log(uniform(shape, 0.9, 0.999)) / 8.0
+            return torch.log(torch.expm1(x))
+        raise ValueError(f"unknown init {init!r} ({name})")
 
     return leaf
 
@@ -83,14 +103,14 @@ def mlp_struct(leaf: Leaf, prefix: str, d: int, d_ff: int, kind: str) -> dict:
     }
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def gelu(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; torch to erf
     return F.gelu(x, approximate="tanh")
 
 
 def mlp_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
-        act = F.silu if kind == "swiglu" else _gelu
+        act = F.silu if kind == "swiglu" else gelu
         h = act(dense(x, p["w_gate"])) * dense(x, p["w_up"])
         return dense(h, p["w_down"])
-    return dense(_gelu(dense(x, p["w_up"])), p["w_down"])
+    return dense(gelu(dense(x, p["w_up"])), p["w_down"])

@@ -1,5 +1,6 @@
-"""Batched LM serving engine: prefill + incremental decode over the dense
-LM's per-layer KV caches.
+"""Batched LM serving engine: prefill + incremental decode over the LM's
+per-layer caches (whatever ``models.lm.prefill`` returns: KV buffers,
+ring buffers of local attention, RG-LRU and SSD states).
 
 Requests are grouped into fixed batch slots; a batch prefills together
 (all prompts of one length) and then decodes lock-step with per-request
@@ -37,7 +38,7 @@ class Request:
 
 
 class ServeEngine:
-    """Serve one dense LM on ``device`` (``cuda`` unless the caller names
+    """Serve one LM on ``device`` (``cuda`` unless the caller names
     another). ``params`` is the reference's parameter tree (numpy or
     tensors; moved to ``device`` with their dtypes kept); ``backend`` is
     the kernel backend of prefill attention (``cuda`` or ``reference``)."""

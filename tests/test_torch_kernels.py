@@ -205,6 +205,7 @@ def _jax_dtype(dtype):
     (2, 4, 2, 64, 64, 32, None),     # GQA
     (1, 2, 1, 32, 128, 16, None),    # cross lengths (q suffix of kv)
     (1, 4, 4, 128, 128, 32, 48),     # local window
+    (1, 4, 1, 128, 128, 256, 48),    # MQA, dh 256, window (recurrentgemma)
 ])
 def test_flash_attention_matches_pallas(jx, dtype, b, hq, hkv, sq, skv, dh,
                                         window):
@@ -262,6 +263,8 @@ def test_attention_op_dispatches_to_both_backends(backend):
     (torch.bfloat16, 16, "flash_attention"),
     (torch.float32, 64, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
+    (torch.bfloat16, 256, "flash_attention"),  # recurrentgemma's head dim
+    (torch.float32, 256, "flash_attention"),
     (torch.float16, 128, "flash_attention"),   # refused there, by dtype
 ])
 def test_flash_attention_route_is_static_by_dtype_and_head_dim(dtype, dh,
@@ -711,6 +714,9 @@ def test_cuda_seg_gather_reads_nothing_outside_a_bad_index(cuda):
     (1, 4, 2, 70, 300, 128, False, None),  # not causal, ragged, dh 128
     (1, 2, 2, 64, 64, 64, True, 0),        # window 0, dh 64
     (1, 2, 1, 300, 2000, 128, True, 100),  # window, ragged Skv, Sq < Skv
+    (2, 10, 1, 300, 300, 256, True, 128),  # MQA 10:1, dh 256, window
+    (1, 4, 1, 100, 230, 256, True, None),  # dh 256, Sq < Skv, ragged
+    (1, 4, 2, 70, 70, 200, False, None),   # 128 < dh < 256, not causal
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, sq, skv,
                                             dh, causal, window):
@@ -753,6 +759,6 @@ def test_cuda_flash_attention_refuses_what_it_cannot_take(cuda):
     k = torch.zeros((1, 2, 8, 16), device=cuda)
     with pytest.raises(ValueError, match="Hq % Hkv"):
         t_flash.flash_attention(q, k, k)
-    q = torch.zeros((1, 2, 8, 160), device=cuda)
+    q = torch.zeros((1, 2, 8, 264), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         t_flash.flash_attention(q, q, q)

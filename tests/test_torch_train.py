@@ -4,8 +4,11 @@ Each piece gets the same numpy inputs as its counterpart in ``repro``:
 
 - the gradient of each differentiable kernel op (the registry's
   ``_with_plain_vjp``: forward the wrapper, backward autograd of the
-  plain version) against ``jax.grad`` through the reference's ``pallas``
-  backend (interpret mode; its backward differentiates the oracles);
+  plain version; sage_max's max: ``ref.seg_gather_max_vjp``, the
+  reference's tie rule) against ``jax.grad`` through the reference's
+  ``pallas`` backend (interpret mode; its backward differentiates the
+  oracles), and at ties against ``jax.grad`` of its ``reference``
+  backend;
 - the whole model's gradient, every arch on generic and degenerate
   graphs, as tests/test_gnn_grad.py holds the reference's backends;
 - AdamW and its schedules, the neighbor sampler (bitwise), the
@@ -169,27 +172,67 @@ def test_gather_aggregate_grad(pallas, op, kept_index):
             es, ed, ev, h, op=op), cot, h))
 
 
-def test_gather_max_splits_ties_between_sources_evenly():
-    """Three distinct sources tie at a destination's maximum: the port's
-    backward (scatter_reduce) gives each a third. The reference folds
-    source shards with jnp.maximum, whose tie rule halves at each fold
-    (1/4, 1/4, 1/2 here): ties between distinct sources are the one
-    place the two gradients part (ROADMAP.md Queue 3)."""
-    es = np.zeros((2, 2, 3), np.int32)
-    ed = np.zeros((2, 2, 3), np.int32)
-    ev = np.zeros((2, 2, 3), bool)
-    es[0, 0, 1] = 1
-    ev[0, 0, :2] = ev[0, 1, 0] = True
-    h = _t(np.ones((2, 2, 1), np.float32)).requires_grad_()
-    out = resolve("cuda").gather_aggregate(_t(es), _t(ed), _t(ev), h,
-                                           op="max")
-    out[0, 0, 0].backward()
-    torch.testing.assert_close(h.grad.reshape(-1),
-                               torch.tensor([1 / 3, 1 / 3, 1 / 3, 0.0]))
-    jg = jax.grad(lambda h: get_backend("reference").gather_aggregate(
-        es, ed, ev, h, op="max")[0, 0, 0])(jnp.ones((2, 2, 1)))
-    np.testing.assert_allclose(np.asarray(jg).reshape(-1),
-                               [0.25, 0.25, 0.5, 0.0])
+def _tie_case(name):
+    """(edge_src, edge_dst, edge_valid, h) of shape (S, S, E) / (S, n, D)
+    with ties at destination (shard 0, row 0)'s maximum."""
+    s, n, e = 3, 2, 4
+    es = np.zeros((s, s, e), np.int32)
+    ed = np.zeros((s, s, e), np.int32)
+    ev = np.zeros((s, s, e), bool)
+    h = np.ones((s, n, 2), np.float32)
+    if name == "three_sources":       # 2 sources in pair (0,0), 1 in (0,1)
+        es[0, 0, 1] = 1
+        ev[0, 0, :2] = ev[0, 1, 0] = True
+    elif name == "within_and_across_pairs":
+        es[0, 0, :2] = (0, 1)         # pair (0,0): two tied sources
+        es[0, 2, :3] = (0, 1, 1)      # pair (0,2): two tied, one duplicate
+        ev[0, 0, :2] = ev[0, 2, :3] = True
+        es[0, 1, 0], ev[0, 1, 0] = 1, True   # pair (0,1): below the max
+        h[1, 1] = 0.5
+        ed[1, 1, :2], es[1, 1, :2], ev[1, 1, :2] = 1, (0, 1), True
+        ev[2, 0, 0] = ev[2, 2, 0] = True     # another row, ties too
+        h[2, 0, 1] = 3.0
+    elif name == "zero_tie_beside_empty_pair":
+        h[:] = 0.0                    # relu outputs: ties at 0
+        h[1, 0, 1] = -1.0
+        es[0, 0, :2] = (0, 1)
+        ev[0, 0, :2] = ev[0, 2, 0] = True    # pair (0,1) is empty
+        ev[1, 1, 0] = True            # a row whose max is in column 1 < 0
+    elif name == "duplicate_edges":
+        es[0, 0, :3] = (1, 1, 0)      # source (0,1) listed twice
+        ev[0, 0, :3] = True
+        es[0, 1, :2] = (0, 0)         # source (1,0) twice, another pair
+        ev[0, 1, :2] = True
+        es[0, 2, 0], ev[0, 2, 0] = 1, True   # and (2,1) once, a third
+        h[0, 0] = 0.25                # (0,0) below the max
+    return es, ed, ev, h
+
+
+@pytest.mark.parametrize("case", ["three_sources", "within_and_across_pairs",
+                                  "zero_tie_beside_empty_pair",
+                                  "duplicate_edges"])
+@pytest.mark.parametrize("backend,kept_index", [
+    ("cuda", True), ("cuda", False), ("reference", False)])
+def test_gather_max_ties_match_reference_grad(backend, kept_index, case):
+    """Ties at a destination's maximum, within one shard pair and across
+    pairs: the port's backward (``ref.seg_gather_max_vjp``) equals
+    ``jax.grad`` of the reference, whose per-pair scatter-max splits a
+    pair's share evenly and whose jnp.maximum fold over source shards
+    halves at each tie (three sources, two in one pair: 1/4, 1/4, 1/2)."""
+    es, ed, ev, h = _tie_case(case)
+    cot = np.random.default_rng(11).standard_normal(h.shape).astype(
+        np.float32)
+    index = csr.gather_index(_t(es), _t(ed), _t(ev), h.shape[1]) \
+        if kept_index else None
+    be = resolve(backend)
+    ours = _torch_grads(lambda h: be.gather_aggregate(
+        _t(es), _t(ed), _t(ev), h, op="max", index=index), cot, h)
+    _assert_grads(ours, _jax_grads(
+        lambda h: get_backend("reference").gather_aggregate(
+            es, ed, ev, h, op="max"), cot, h))
+    if case == "three_sources":
+        g = ours[1][0][..., 0].reshape(-1)[:3] / cot[0, 0, 0]
+        np.testing.assert_allclose(g.numpy(), [0.25, 0.25, 0.5], **OP_TOL)
 
 
 def test_graph_aggregate_indexed_grad(pallas):
