@@ -15,7 +15,11 @@ KV cache and a few GB of plain-attention scratch, 5.4 GB of minicpm-2b,
 then ~38 GB of command-r-plus-104b at 8 layers, 28.6 GB of
 qwen2-moe-a2.7b (38 GB at its peak), 39.4 GB of llama4-scout-17b-a16e at
 8 layers (57 GB at its peak, in the float64 MoE check), 5.8 GB of
-recurrentgemma-2b and 2.7 GB of mamba2-1.3b. In order:
+recurrentgemma-2b and 2.7 GB of mamba2-1.3b, then 3.1 GB of qwen2-vl-2b,
+4.9 GB of musicgen-large, ~37 GB of qwen2.5-3b's train state (bf16
+parameters and gradients, float32 moments) and ~25 GB of qwen2-vl-2b's
+(with the float32 error feedback); the train phase also writes a ~31 GB
+checkpoint to a temporary directory on the host. In order:
 
 1. device check: the backend variables unset; prints ``nvidia-smi``'s
    name and power limit; TF32 off;
@@ -198,12 +202,56 @@ recurrentgemma-2b and 2.7 GB of mamba2-1.3b. In order:
    the full forward (``LM_LOGIT_ATOL``; MoE at no-drop capacity with the
    forward's routing replayed). Each model is freed after, its wall time
    and peak memory printed; qwen3-8b and the last four are profiled;
+6a. VLM serve: qwen2-vl-2b at full width and depth through
+   ``lm.prefill`` and ``lm.decode_step`` (the engine serves token inputs
+   only, as the reference's): ``VLM_BATCH`` prompts of 1024 frontend
+   embedding rows under Qwen2-VL's M-RoPE ids (``VLM_GRID``: text, a 28
+   x 32 image grid, text), prefill timed cold and warm, 16 decode steps;
+   28 ``_tc`` launches a prefill and no CUDA-core one; prefill logits
+   against the ``reference`` backend and prefill + one decode step
+   against the full forward (its last ids (s, s, s)) within
+   ``LM_LOGIT_ATOL`` and ``LM_LOGIT_REL``; degenerate ids must move the
+   logits by more than ``LM_LOGIT_ATOL``; one prefill and one decode
+   step profiled;
+6b. audio serve: musicgen-large at full width and depth through the
+   Server (max batch 4), 4 requests of (1024, 4) codebook prompts, 16 new
+   tokens, one at ``SAMPLE_TEMPERATURE`` (its batch repeats token for
+   token from the same engine seed); every request (16, 4) tokens; 48
+   ``_tc`` launches a prefill batch; parity and profile as in phase 6;
+6c. LM train: qwen2.5-3b at full width and depth, ``make_train_step``
+   (remat, donating) under ``TrainLoop`` on ``TRAIN_LM_BATCH`` tokens.
+   Step-0 loss and gradients against the ``reference`` backend
+   (``LM_LOSS_ATOL``; every leaf within ``LM_GRAD_REL``, the worst five
+   printed) and, at ``TRAIN_F32_LAYERS`` layers in float32 through the
+   CUDA-core kernel, within ``GRAD_REL``; ``TRAIN_LM_STEPS`` steps on one
+   batch at lr ``TRAIN_LM_LR``: finite losses, the last below the first,
+   exactly 72 ``_tc`` launches a step (each attention layer's forward
+   and its remat recompute) and none on the CUDA-core kernel; the AdamW
+   update's share of a step; one step profiled; a SIGTERM after step
+   ``TRAIN_CKPT_STEP`` saved by the loop (async ``CheckpointManager`` in
+   a temporary directory) and a new ``TrainLoop`` that restores it: the
+   restored state bit for bit the saved one and the resumed step equal
+   to the uninterrupted run's (loss and state, exactly);
+6d. LM train with compression: qwen2-vl-2b at full width and depth,
+   ``compress_grads=True``, ``VLM_TRAIN_STEPS`` steps on embedding
+   batches under ``VLM_TRAIN_GRID``'s ids: step-0 gradients within
+   ``LM_GRAD_REL`` of ``reference``, finite losses, the error feedback
+   nonzero after step 1, 56 ``_tc`` launches a step, the wire bytes
+   saved printed;
+6e. scanned forward: recurrentgemma-2b at full width and depth
+   restacked into 8 groups of 3 layers and 2 trailing layers;
+   ``forward_scanned`` against ``forward`` and ``loss_fn_scanned``
+   against ``loss_fn`` on ``SCAN_BATCH`` tokens within ``SCAN_ATOL``;
+   one CUDA-core flash_attention launch per attention layer per pass;
 7. summary: a ``kernels`` JSON line (each row with its launches in the
    serve run, a train step, the stream run, the tuned serve run, the
    mesh serve run, the analyze phase's probes and the paper networks'
    forwards and steps; flash_attention's also in the minicpm-2b,
    command-r-plus-104b, qwen2-moe-a2.7b, llama4-scout-17b-a16e,
-   recurrentgemma-2b and mamba2-1.3b runs),
+   recurrentgemma-2b and mamba2-1.3b runs, and in phases 6a-6e:
+   ``qwen2_vl_serve_launches``, ``musicgen_launches``,
+   ``lm_train_launches`` (8 steps), ``lm_train_f32_launches``,
+   ``qwen2_vl_train_launches`` (3 steps) and ``scanned_launches``),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -436,6 +484,64 @@ RG_WINDOW = 2048
 RGLRU_REL = 1e-5
 SSD_REL = 1e-4
 MOE_REL = 1e-5
+# Phase 6a: qwen2-vl-2b at full width and depth (1.55 B parameters, 3.1 GB
+# in bf16; GQA 12/2 at dh 128 on the tensor-core flash_attention): B
+# VLM_BATCH prompts of frontend-embedding rows under Qwen2-VL's M-RoPE
+# ids, VLM_GRID = 64 text positions, a 28 x 32 image grid, 64 text
+# positions (1024 in all), then LM_NEW_TOKENS decode steps. Its head is
+# untied and drawn at std d^-1/2, so its logits have unit std like
+# qwen3-8b's: LM_LOGIT_ATOL and LM_LOGIT_REL.
+VLM_ARCH = "qwen2-vl-2b"
+VLM_BATCH = 4
+VLM_GRID = (64, 28, 32, 64)
+# Phase 6b: musicgen-large at full width and depth (2.45 B, 4.9 GB; MHA
+# 32/32 at dh 64 on the tensor-core kernel), 4 requests of (1024, 4)
+# codebook prompts, 16 new tokens, one of them at SAMPLE_TEMPERATURE. Its
+# four untied heads are drawn at std d^-1/2: LM_LOGIT_ATOL and
+# LM_LOGIT_REL over the (4, 4, 2048) logits.
+MUSICGEN_ARCH = "musicgen-large"
+# Phase 6c: qwen2.5-3b trained at full width and depth (3.09 B, tied
+# embeddings) on one fixed batch of TRAIN_LM_BATCH tokens, lr
+# TRAIN_LM_LR after one warm-up step; a preemption after TRAIN_CKPT_STEP
+# steps, saved by the TrainLoop and resumed by a new one.
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_LM_BATCH = (4, 512)
+TRAIN_LM_STEPS = 8
+TRAIN_LM_LR = 1e-4
+TRAIN_CKPT_STEP = 4
+# Step-0 gradients through the kernels against the reference backend, per
+# leaf, relative norm, in bf16. The backward is the same plain autograd
+# on both sides; the forwards differ in attention, whose bf16 output may
+# differ by one rounding (2^-9 relative) and whose P is rounded to bf16
+# before P V in the kernel: a few 1e-3 relative in each layer's
+# attention output, carried through 36 bf16 layers forward and back into
+# every gradient, so a few 1e-2 at most; the card reads 3.9e-2 at
+# qwen2.5-3b's worst leaf (a bk) and 4.3e-2 at qwen2-vl-2b's (a wq),
+# while the float32 check below reads 3.8e-6 (PERF.md). A gradient that
+# misses attention's share reads 1.0 at wq, wk and wv. The losses (~ln V
+# = 11.9 at random init) agree within LM_LOSS_ATOL, ~1e-3 relative (the
+# card: 1.4e-4 and 6.5e-5).
+LM_GRAD_REL = 5e-2
+LM_LOSS_ATOL = 1e-2
+# the same gradients in float32 at TRAIN_F32_LAYERS of the 36 layers, on
+# TRAIN_F32_BATCH tokens, through the CUDA-core kernel: the kernels'
+# float32 rounding only, as the GNN train phase: GRAD_REL
+TRAIN_F32_LAYERS = 2
+TRAIN_F32_BATCH = (2, 512)
+# Phase 6d: qwen2-vl-2b trained with int8 gradient compression and error
+# feedback, VLM_TRAIN_STEPS steps on TRAIN_LM_BATCH embedding rows under
+# the ids of VLM_TRAIN_GRID (64 text positions, then 14 rows of the 32-wide
+# grid of 6a: 512 positions)
+VLM_TRAIN_STEPS = 3
+VLM_TRAIN_GRID = (64, 14, 32, 0)
+# Phase 6e: recurrentgemma-2b's scanned forward (period 3: 8 stacked
+# groups, 2 trailing layers) on SCAN_BATCH tokens. A group's slice of a
+# stacked leaf is contiguous, so the same kernels see the same numbers and
+# the logits should be equal; SCAN_ATOL (four bf16 ulps at |logit| ~1)
+# bounds what another cuBLAS choice for a sliced operand could change.
+SCAN_ARCH = RG_ARCH
+SCAN_BATCH = (4, 1024)
+SCAN_ATOL = 1e-3
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -2873,6 +2979,54 @@ def _expected_attention_launches(cfg, batches: int) -> dict:
     return expect
 
 
+def _logits_close(label: str, got, want, atol: float) -> None:
+    """Hold logits to ``want`` within ``atol`` (max abs) and
+    ``LM_LOGIT_REL`` (relative norm); print both."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"{label}: max_abs_err {err:.4e} (tol {atol}), rel norm "
+          f"{rel:.4e} (tol {LM_LOGIT_REL}), |logit| max "
+          f"{want.abs().max().item():.3f}")
+    if not (err <= atol and rel <= LM_LOGIT_REL):
+        raise AssertionError(f"{label}: logits disagree")
+
+
+def _check_launches(label: str, cfg, launches: dict, per_layer: int) -> None:
+    """The flash_attention launches must be ``per_layer`` per attention
+    layer on the kernel ``_route`` picks, and none on the other."""
+    expect = _expected_attention_launches(cfg, per_layer)
+    got = {k: launches[k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"{label}: flash_attention launches {got}, "
+                             f"expected {expect}")
+
+
+def _setup(cfg, params, t0: float, label: str) -> None:
+    """Check the parameter count and print the model's size."""
+    from repro_torch.models import lm
+
+    leaves = _leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    if n_params != cfg.num_params() + lm.uncounted_params(cfg):
+        raise AssertionError(f"{n_params} parameters, config says "
+                             f"{cfg.num_params()} + "
+                             f"{lm.uncounted_params(cfg)}")
+    print(f"{label} setup: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} dh {cfg.head_dim} "
+          f"{n_params / 1e9:.3f} B params, {_nbytes(*leaves) / 1e9:.2f} GB "
+          f"{cfg.param_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _phase_end(label: str, card: str, t_phase: float) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label} wall time ({card}): {time.perf_counter() - t_phase:.1f} "
+          f"s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
 def lm_serve_phase(card: str, arch: str = LM_ARCH,
                    prompts: tuple[int, ...] = LM_PROMPTS,
                    per_prompt: int = LM_REQUESTS_PER_PROMPT,
@@ -2917,18 +3071,8 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
             backend=args.backend)
     torch.cuda.synchronize()
     cfg = engine.cfg
-    leaves = _leaves(engine.params)
-    n_params = sum(t.numel() for t in leaves)
-    # the reference's analytic count leaves out the conv biases
-    if n_params != cfg.num_params() + lm.uncounted_params(cfg):
-        raise AssertionError(f"{n_params} parameters, config says "
-                             f"{cfg.num_params()} + "
-                             f"{lm.uncounted_params(cfg)} conv biases")
-    print(f"lm setup: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
-          f"heads {cfg.n_heads}/{cfg.n_kv_heads} dh {cfg.head_dim} "
-          f"{n_params / 1e9:.3f} B params, "
-          f"{_nbytes(*leaves) / 1e9:.2f} GB {cfg.param_dtype}, drawn on the "
-          f"card in {time.perf_counter() - t0:.1f} s; max_len {engine.max_len}")
+    _setup(cfg, engine.params, t0, "lm")
+    print(f"lm max_len {engine.max_len}")
 
     requests = [r for i, plen in enumerate(prompts)
                 for r in lm_requests(cfg, per_prompt, plen, new_tokens,
@@ -2946,9 +3090,11 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
     if len(done) != len(requests):
         raise AssertionError(f"only {len(done)}/{len(requests)} LM requests "
                              f"completed: {outcomes}")
+    want = (new_tokens,) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1
+                            else ())
     for o in done:
         toks = o.value
-        if toks.shape != (new_tokens,) or not (
+        if toks.shape != want or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
             raise AssertionError(f"bad generated tokens {toks}")
     batches = engine.stats["prefill_batches"]
@@ -2979,11 +3125,7 @@ def lm_serve_phase(card: str, arch: str = LM_ARCH,
     if profile:
         lm_profile(engine, requests[-per_prompt:], card)
     del engine, server, outcomes, done
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"lm {arch} wall time ({card}): "
-          f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    _phase_end(f"lm {arch}", card, t_phase)
     return launches["flash_attention_tc"] + launches["flash_attention"]
 
 
@@ -3090,7 +3232,9 @@ def lm_prefill_parity(engine, requests, served, card: str,
           + ", ".join(f"{n}x{plen} {backend} {ms:.3f} ms"
                       for (plen, backend), ms in prefill_ms.items()))
     got = logits["cuda"]
-    if got.shape != (n, cfg.vocab_size) or not torch.isfinite(got).all():
+    want = (n,) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()) \
+        + (cfg.vocab_size,)
+    if got.shape != want or not torch.isfinite(got).all():
         raise AssertionError(f"prefill logits {tuple(got.shape)} not finite "
                              f"or of the wrong shape")
     free = logits["reference"]
@@ -3301,9 +3445,10 @@ def _handoff_check(engine, toks, card: str) -> None:
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
-    b, s = toks.shape
+    b, s = toks.shape[:2]
     nxt = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (b, 1)).astype(np.int32)).to(toks.device)
+        0, cfg.vocab_size, (b, 1) + toks.shape[2:]).astype(np.int32)).to(
+        toks.device)
     seq = torch.cat([toks, nxt], dim=1)
     rec: list = []
     with _Routing(record=rec):
@@ -3314,18 +3459,10 @@ def _handoff_check(engine, toks, card: str) -> None:
     with _Routing(replay=rec, positions=slice(s, s + 1)):
         step, _ = lm.decode_step(engine.params, cfg,
                                  {"tokens": nxt, "pos": s}, caches)
-    for label, got, want in (("prefill", first[:, 0], full[:, s - 1]),
-                             ("decode", step[:, 0], full[:, s])):
-        got, want = got.float(), want.float()
-        err = (got - want).abs().max().item()
-        rel = ((got - want).norm() / want.norm()).item()
-        print(f"lm handoff ({cfg.name}, {card}): {label} at position "
-              f"{s - 1 if label == 'prefill' else s} of a {s}-token prompt vs "
-              f"the forward: max_abs_err {err:.4e} (tol {LM_LOGIT_ATOL}), "
-              f"rel norm {rel:.4e} (tol {LM_LOGIT_REL})")
-        if err > LM_LOGIT_ATOL or rel > LM_LOGIT_REL:
-            raise AssertionError(f"{cfg.name}: {label} logits disagree with "
-                                 f"the full forward")
+    for label, pos, got in (("prefill", s - 1, first), ("decode", s, step)):
+        _logits_close(f"lm handoff ({cfg.name}, {card}): {label} at position "
+                      f"{pos} of a {s}-token prompt vs the forward",
+                      got[:, 0], full[:, pos], LM_LOGIT_ATOL)
     del full, caches
 
 
@@ -3383,6 +3520,547 @@ def lm_profile(engine, batch, card: str) -> None:
         _profile(prefill, f"lm prefill {toks.shape[0]}x{toks.shape[1]}",
                  card)
         _profile(decode, f"lm decode step (batch {toks.shape[0]})", card)
+
+
+def _mrope_ids(b: int, n_text: int, gh: int, gw: int,
+               n_after: int) -> torch.Tensor:
+    """(3, b, S) int32 M-RoPE ids laid out as Qwen2-VL's ``get_rope_index``
+    does (arXiv:2409.12191 §2.1): ``n_text`` text positions with equal
+    (t, h, w) ids, a gh x gw image grid at one temporal id with h and w
+    running over the grid, then ``n_after`` text positions from the
+    largest id + 1. The three rows differ on the grid."""
+    text = np.arange(n_text)
+    r, c = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    start = n_text + max(gh, gw)
+    after = np.arange(start, start + n_after)
+    rows = [np.concatenate([text, np.full(gh * gw, n_text), after]),
+            np.concatenate([text, n_text + r.ravel(), after]),
+            np.concatenate([text, n_text + c.ravel(), after])]
+    one = torch.from_numpy(np.stack(rows).astype(np.int32))   # (3, S)
+    return one[:, None].expand(3, b, one.shape[1]).contiguous()
+
+
+def vlm_serve_phase(card: str, device: str = "cuda") -> int:
+    """Phase 6a: qwen2-vl-2b at full width and depth, served by
+    ``lm.prefill`` and ``lm.decode_step`` (the engine takes token inputs
+    only, as the reference's): ``VLM_BATCH`` prompts of frontend
+    embeddings under image-grid M-RoPE ids, then ``LM_NEW_TOKENS`` decode
+    steps. Returns the tensor-core kernel's launches of the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize()
+    _setup(cfg, params, t0, "vlm")
+    b, new = VLM_BATCH, LM_NEW_TOKENS
+    grid = _mrope_ids(b, *VLM_GRID).to(device)
+    s = grid.shape[2]
+    max_len = s + new + 1
+    emb = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (b, s + new, cfg.d_model)).astype(np.float32)).to(device)
+    prompt = {"embeddings": emb[:, :s], "positions": grid}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        prefill_ms = []     # the first call cold, the second warm
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logits, caches = lm.prefill(params, cfg, prompt, max_len)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = _lib.launches()
+        _check_launches(f"vlm prefill {b}x{s}", cfg, launches, 2)
+        decode_ms = []
+        for t in range(new):
+            t0 = time.perf_counter()
+            step, caches = lm.decode_step(
+                params, cfg, {"embeddings": emb[:, s + t:s + t + 1],
+                              "pos": s + t}, caches)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            if step.shape != (b, 1, cfg.vocab_size) \
+                    or not torch.isfinite(step).all():
+                raise AssertionError(f"decode step {t}: logits "
+                                     f"{tuple(step.shape)} not finite")
+        print(f"vlm serve {cfg.name} ({card}, host clock, synchronized): "
+              f"prefill {b} x {s} embedding rows {prefill_ms[1]:.3f} ms "
+              f"(cold {prefill_ms[0]:.3f}), "
+              f"{new} decode steps median {np.median(decode_ms):.3f} ms "
+              f"(first {decode_ms[0]:.3f}); launches {launches}")
+        ref, _ = lm.prefill(params, cfg, prompt, max_len,
+                            backend="reference")
+        _logits_close(f"vlm parity ({cfg.name}, {b} x {s}, image-grid "
+                      f"M-RoPE): cuda vs reference prefill logits",
+                      logits[:, 0], ref[:, 0], LM_LOGIT_ATOL)
+        flat, _ = lm.prefill(params, cfg, {"embeddings": emb[:, :s]},
+                             max_len)
+        moved = (flat[:, 0].float() - logits[:, 0].float()).abs().max()
+        print(f"vlm M-RoPE: degenerate ids (t = h = w) move the last "
+              f"position's logits by {moved.item():.4e} (max abs)")
+        if not moved > LM_LOGIT_ATOL:
+            raise AssertionError("the h and w rows of the M-RoPE ids do not "
+                                 "reach the logits")
+        del ref, flat, caches
+        # prefill + one decode step against the full forward, whose last
+        # position carries the ids (s, s, s) that decode rotates by
+        last = torch.full((3, 2, 1), s, dtype=torch.int32, device=device)
+        full = lm.forward(params, cfg, {
+            "embeddings": emb[:2, :s + 1],
+            "positions": torch.cat([grid[:, :2], last], dim=2)})
+        first, two = lm.prefill(params, cfg, {"embeddings": emb[:2, :s],
+                                              "positions": grid[:, :2]},
+                                max_len)
+        step, _ = lm.decode_step(params, cfg, {"embeddings": emb[:2, s:s + 1],
+                                               "pos": s}, two)
+        _logits_close(f"vlm handoff ({card}): prefill at position {s - 1} vs "
+                      f"the forward", first[:, 0], full[:, s - 1],
+                      LM_LOGIT_ATOL)
+        _logits_close(f"vlm handoff ({card}): decode at position {s} vs the "
+                      f"forward", step[:, 0], full[:, s], LM_LOGIT_ATOL)
+        del full, first, two, step
+        state = {}
+
+        def prefill():
+            state["caches"] = lm.prefill(params, cfg, prompt, max_len)[1]
+
+        def decode():
+            lm.decode_step(params, cfg, {"embeddings": emb[:, s:s + 1],
+                                         "pos": s}, state["caches"])
+
+        _profile(prefill, f"vlm prefill {b}x{s}", card)
+        _profile(decode, f"vlm decode step (batch {b})", card)
+    del params, emb, state, logits
+    _phase_end(f"lm {VLM_ARCH}", card, t_phase)
+    return launches["flash_attention_tc"] // 2
+
+
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """The leaves' paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _lm_grads(params, cfg, batch, backend: str):
+    """(loss, gradients in ``tree_leaves`` order) of ``lm.loss_fn`` with
+    remat, as the train step takes them."""
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss = lm.loss_fn(tree_unflatten(params, leaves), cfg, batch, remat=True,
+                      backend=backend)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), list(grads)
+
+
+def _grad_parity(label: str, params, cfg, batch, tol: float) -> dict:
+    """Step-0 gradients through the kernels against the ``reference``
+    backend: the losses within ``LM_LOSS_ATOL`` and every leaf within
+    ``tol`` (relative norm), the worst five printed. Returns the kernel
+    launches of the cuda pass."""
+    from repro_torch.kernels import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    loss_c, g_c = _lm_grads(params, cfg, batch, "cuda")
+    torch.cuda.synchronize()
+    cuda_ms = (time.perf_counter() - t0) * 1e3
+    launches = _lib.launches()
+    t0 = time.perf_counter()
+    loss_r, g_r = _lm_grads(params, cfg, batch, "reference")
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    rels = []
+    for name, a, b in zip(_leaf_names(params), g_c, g_r):
+        a, b = a.float(), b.float()
+        rels.append((((a - b).norm() / b.norm().clamp_min(1e-30)).item(),
+                     name, b.norm().item()))
+    del g_c, g_r
+    worst = sorted(rels, reverse=True)[:5]
+    print(f"{label}: loss cuda {loss_c.item():.6f} reference "
+          f"{loss_r.item():.6f} (tol {LM_LOSS_ATOL}); loss + gradients "
+          f"{cuda_ms:.1f} ms cuda, {ref_ms:.1f} ms reference (host clock); "
+          f"gradient rel norm over {len(rels)} leaves, worst five "
+          + ", ".join(f"{n} {r:.3e} (|g| {g:.3e})" for r, n, g in worst)
+          + f" (tol {tol})")
+    if not abs(loss_c.item() - loss_r.item()) <= LM_LOSS_ATOL:
+        raise AssertionError(f"{label}: losses disagree")
+    if not worst[0][0] <= tol:
+        raise AssertionError(f"{label}: gradient of {worst[0][1]} off by "
+                             f"{worst[0][0]:.3e}")
+    return launches
+
+
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _digest(tree) -> list[tuple[int, int]]:
+    """A bitwise fingerprint of every leaf: the sums of its bits (read as
+    integers) and of its bits weighted by position (int64 sums in
+    chunks; a wraparound is as deterministic as the rest)."""
+    from repro_torch.training.optimizer import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        flat = t.detach().reshape(-1).view(_BITS[t.element_size()])
+        s1 = s2 = 0
+        for i in range(0, flat.numel(), 1 << 24):
+            bits = flat[i:i + (1 << 24)].to(torch.int64)
+            w = torch.arange(i, i + bits.numel(), device=bits.device) % 251
+            s1 += int(bits.sum())
+            s2 += int((bits * (w + 1)).sum())
+        out.append((s1, s2))
+    return out
+
+
+def _state(params, opt_state) -> tuple:
+    return params, opt_state["m"], opt_state["v"], opt_state["step"]
+
+
+def _probed(step_fn, rec: dict, *, digest_after=(), digest_before=(),
+            preempt_after: int | None = None):
+    """``step_fn`` that records, per step index i (the optimizer's step
+    count before it), the loss, kernel launches and synchronized host
+    ms; digests of the state before step i for i in ``digest_before``
+    and after it for i + 1 in ``digest_after``; and sends itself SIGTERM
+    after step ``preempt_after`` - 1, as a preemption would (the
+    TrainLoop then saves and stops)."""
+    import signal
+
+    from repro_torch.kernels import _lib
+
+    def step(params, opt_state, batch):
+        i = int(opt_state["step"])
+        if i in digest_before:
+            rec.setdefault("before", {})[i] = _digest(_state(params,
+                                                             opt_state))
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        rec.setdefault("ms", []).append((time.perf_counter() - t0) * 1e3)
+        rec.setdefault("launches", []).append(_lib.launches())
+        rec.setdefault("loss", {})[i] = loss
+        if i + 1 in digest_after:
+            rec.setdefault("after", {})[i + 1] = _digest(_state(params,
+                                                                opt_state))
+        if preempt_after == i + 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return params, opt_state, metrics
+
+    return step
+
+
+def _train_batch(cfg, b: int, s: int, device, grid=None) -> dict:
+    """A training batch from seed 0 as ``launch/train.py`` makes one:
+    random labels, the tokens equal to them (or random frontend
+    embeddings with ``grid``'s M-RoPE ids for an embedding-input
+    config)."""
+    rng = np.random.default_rng(0)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).to(device)
+    if cfg.input_mode != "embeddings":
+        return {"tokens": labels, "labels": labels}
+    emb = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    return {"embeddings": torch.from_numpy(emb).to(device=device,
+                                                   dtype=cfg.cdtype),
+            "positions": _mrope_ids(b, *grid).to(device), "labels": labels}
+
+
+def lm_train_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 6c: qwen2.5-3b trained at full width and depth through the
+    kernels (``make_train_step(remat=True)`` under ``TrainLoop``): the
+    step-0 gradients against the ``reference`` backend in bf16 and, at 2
+    of 36 layers, in float32; ``TRAIN_LM_STEPS`` steps on one fixed
+    batch; a preemption after step ``TRAIN_CKPT_STEP`` saved by the loop
+    and resumed by a new one; one step profiled. Returns the
+    flash_attention launches of the uninterrupted run and of the float32
+    check."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamWConfig, tree_map
+    from repro_torch.training.train_loop import (TrainLoop, init_train_state,
+                                                 make_train_step)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_LM_BATCH
+    opt_cfg = AdamWConfig(lr=TRAIN_LM_LR, warmup_steps=1,
+                          total_steps=TRAIN_LM_STEPS)
+
+    def fresh(seed: int = 0):
+        return init_train_state(cfg, opt_cfg,
+                                torch.Generator(device).manual_seed(seed))
+
+    t0 = time.perf_counter()
+    params, opt_state = fresh()
+    torch.cuda.synchronize()
+    _setup(cfg, params, t0, "lm train")
+    state_gb = _nbytes(*_leaves((params, opt_state["m"],
+                                 opt_state["v"]))) / 1e9
+    # the resumed run's template: a restore takes only each leaf's dtype
+    # and device from it, so empty leaves keep the card from holding a
+    # second state beside the restored one
+    template = tree_map(lambda t: t.new_empty(0), (params, opt_state))
+    batch = _train_batch(cfg, b, s, device)
+    launches = _grad_parity(f"lm train step 0 ({cfg.name}, {b} x {s}, "
+                            f"{cfg.param_dtype}, remat)", params, cfg, batch,
+                            LM_GRAD_REL)
+    _check_launches("lm train gradients", cfg, launches, 2)
+
+    f32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    p32 = lm.init_params(f32, torch.Generator(device).manual_seed(0))
+    f32_launches = _grad_parity(
+        f"lm train step 0 float32 ({TRAIN_F32_LAYERS} of {cfg.n_layers} "
+        f"layers, {TRAIN_F32_BATCH[0]} x {TRAIN_F32_BATCH[1]})", p32, f32,
+        _train_batch(f32, *TRAIN_F32_BATCH, device), GRAD_REL)
+    _check_launches("lm train float32 gradients", f32, f32_launches, 2)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_fn = make_train_step(cfg, opt_cfg, remat=True, donate=True)
+    ckpt = TRAIN_CKPT_STEP
+    first: dict = {}
+    loop = TrainLoop(cfg, opt_cfg, lambda step: batch, log_every=1)
+    params, opt_state, _ = loop.run(
+        params, opt_state, TRAIN_LM_STEPS, log=print,
+        train_step=_probed(step_fn, first, digest_after=(ckpt, ckpt + 1)))
+    losses = [first["loss"][i] for i in range(TRAIN_LM_STEPS)]
+    for i, got in enumerate(first["launches"]):
+        _check_launches(f"lm train step {i}", cfg, got, 2)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm train {cfg.name} ({card}): {TRAIN_LM_STEPS} steps of {b} x "
+          f"{s} tokens, losses {[round(x, 5) for x in losses]}; step ms "
+          f"(synchronized) {[round(x, 1) for x in first['ms']]}, median "
+          f"{np.median(first['ms']):.1f} ms; {first['launches'][0]} "
+          f"launches a step; peak device memory {peak:.2f} GB")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"lm train losses {losses}: not finite or not "
+                             f"falling")
+
+    # one more step with the AdamW update timed alone, then one profiled
+    adamw = train_loop.adamw_update
+    update_ms = []
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = adamw(*args, **kw)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    train_loop.adamw_update = timed_update
+    try:
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        train_loop.adamw_update = adamw
+    print(f"lm train AdamW update ({card}, host clock, synchronized): "
+          f"{update_ms[0]:.1f} ms of a {step_ms:.1f} ms step "
+          f"({update_ms[0] / step_ms:.3f})")
+    _profile(lambda: step_fn(params, opt_state, batch),
+             f"lm train step {b}x{s}", card)
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=3, async_save=True)
+        saved: dict = {}
+        t0 = time.perf_counter()
+        out = TrainLoop(cfg, opt_cfg, lambda step: batch, ckpt_manager=mgr,
+                        ckpt_every=50, log_every=1).run(
+            *fresh(), TRAIN_LM_STEPS, log=print,
+            train_step=_probed(step_fn, saved, digest_after=(ckpt,),
+                               preempt_after=ckpt))
+        del out
+        gc.collect()
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        if mgr.latest_step() != ckpt or len(saved["loss"]) != ckpt:
+            raise AssertionError(f"the preempted run saved step "
+                                 f"{mgr.latest_step()} after "
+                                 f"{len(saved['loss'])} steps")
+        same = saved["after"][ckpt] == first["after"][ckpt]
+        print(f"lm checkpoint ({card}): preempted after step {ckpt}; the "
+              f"{ckpt} steps and the async save of {state_gb:.2f} GB took "
+              f"{save_s:.1f} s; its state "
+              f"{'equals' if same else 'DIFFERS from'} the uninterrupted "
+              f"run's bit for bit")
+        resumed: dict = {}
+        t0 = time.perf_counter()
+        out = TrainLoop(cfg, opt_cfg, lambda step: batch, ckpt_manager=mgr,
+                        ckpt_every=50, log_every=1).run(
+            *template, ckpt + 1, log=print,
+            train_step=_probed(step_fn, resumed, digest_before=(ckpt,),
+                               digest_after=(ckpt + 1,)))
+        del out
+        resume_s = time.perf_counter() - t0
+    restored = resumed["before"][ckpt] == saved["after"][ckpt]
+    loss_diff = resumed["loss"][ckpt] - first["loss"][ckpt]
+    step_same = resumed["after"][ckpt + 1] == first["after"][ckpt + 1]
+    print(f"lm resume ({card}): a new TrainLoop restored step {ckpt} "
+          f"({'bit for bit' if restored else 'NOT bit for bit'}) and ran "
+          f"step {ckpt + 1} in {resume_s:.1f} s: loss "
+          f"{resumed['loss'][ckpt]:.6f} vs uninterrupted "
+          f"{first['loss'][ckpt]:.6f} (difference {loss_diff:.3e}); state "
+          f"after it {'equals' if step_same else 'DIFFERS from'} the "
+          f"uninterrupted run's")
+    if not (restored and loss_diff == 0 and step_same):
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    _phase_end(f"lm train {TRAIN_ARCH}", card, t_phase)
+    return {"lm_train_launches": sum(x["flash_attention_tc"]
+                                     for x in first["launches"]),
+            "lm_train_f32_launches": f32_launches["flash_attention"]}
+
+
+def vlm_train_phase(card: str, device: str = "cuda") -> int:
+    """Phase 6d: qwen2-vl-2b trained at full width and depth with int8
+    gradient compression and error feedback, ``VLM_TRAIN_STEPS`` steps of
+    image-grid embedding batches; step-0 gradients against the
+    ``reference`` backend. Returns the flash_attention launches of the
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.compression import wire_bytes_saved
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(VLM_ARCH)
+    b, s = TRAIN_LM_BATCH
+    opt_cfg = AdamWConfig(lr=TRAIN_LM_LR, warmup_steps=1,
+                          total_steps=VLM_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    params, opt_state = init_train_state(
+        cfg, opt_cfg, torch.Generator(device).manual_seed(0),
+        compress_grads=True)
+    torch.cuda.synchronize()
+    _setup(cfg, params, t0, "vlm train")
+    batch = _train_batch(cfg, b, s, device, grid=VLM_TRAIN_GRID)
+    _grad_parity(f"vlm train step 0 ({cfg.name}, {b} x {s} image-grid "
+                 f"embeddings, remat)", params, cfg, batch, LM_GRAD_REL)
+    step_fn = make_train_step(cfg, opt_cfg, remat=True, compress_grads=True,
+                              donate=True)
+    rec: dict = {}
+    probe = _probed(step_fn, rec)
+    for i in range(VLM_TRAIN_STEPS):
+        params, opt_state, _ = probe(params, opt_state, batch)
+        if i == 0 and not any(e.abs().max() > 0
+                              for e in tree_leaves(opt_state["ef"])):
+            raise AssertionError("the error feedback is zero after step 1")
+        _check_launches(f"vlm train step {i}", cfg, rec["launches"][i], 2)
+    losses = [rec["loss"][i] for i in range(VLM_TRAIN_STEPS)]
+    ef = max(e.abs().max().item() for e in tree_leaves(opt_state["ef"]))
+    print(f"vlm train {cfg.name} ({card}, int8 gradients with error "
+          f"feedback): losses {[round(x, 5) for x in losses]}, step ms "
+          f"(synchronized) {[round(x, 1) for x in rec['ms']]}; largest "
+          f"|ef| {ef:.3e}; wire bytes saved a step "
+          f"{wire_bytes_saved(params) / 1e9:.3f} GB (the data-parallel "
+          f"all-reduce's payload; nothing crosses a wire on one card)")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"vlm train losses {losses} not finite")
+    del params, opt_state
+    _phase_end(f"vlm train {VLM_ARCH}", card, t_phase)
+    return sum(x["flash_attention_tc"] for x in rec["launches"])
+
+
+def _restack(params, cfg) -> dict:
+    """``params`` in the scanned layout (as tests/test_archs.py restacks
+    them): p groups of stacked layer trees and the trailing layers."""
+    from repro_torch.models import lm
+
+    p = lm.pattern_period(cfg)
+    nf = cfg.n_layers // p
+
+    def stack(*trees):
+        if isinstance(trees[0], dict):
+            return {k: stack(*(t[k] for t in trees)) for k in trees[0]}
+        return torch.stack(trees)
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["stack"] = tuple(stack(*(params["layers"][j + k * p]
+                                 for k in range(nf))) for j in range(p))
+    out["trail"] = params["layers"][nf * p:]
+    return out
+
+
+def scanned_phase(card: str, device: str = "cuda") -> int:
+    """Phase 6e: recurrentgemma-2b's scanned forward at full width and
+    depth (period 3: 8 stacked groups and 2 trailing layers) against the
+    unrolled forward, and the scanned loss against the unrolled one, on
+    ``SCAN_BATCH`` tokens. Returns the flash_attention launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SCAN_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize()
+    _setup(cfg, params, t0, "scanned")
+    scanned = _restack(params, cfg)
+    period = lm.pattern_period(cfg)
+    print(f"scanned layout: period {period}, {cfg.n_layers // period} "
+          f"stacked groups, {len(scanned['trail'])} trailing layers")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, SCAN_BATCH)
+                            .astype(np.int32)).to(device)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        full = lm.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scan = lm.forward_scanned(scanned, cfg, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        err = (scan.float() - full.float()).abs().max().item()
+        del full, scan
+        loss = lm.loss_fn(params, cfg, batch)
+        loss_s = lm.loss_fn_scanned(scanned, cfg, batch)
+        launches = _lib.launches()
+    d_loss = abs(loss_s.item() - loss.item())
+    print(f"scanned forward ({cfg.name}, {SCAN_BATCH[0]} x {SCAN_BATCH[1]} "
+          f"tokens, {card}): logits max_abs_err vs the unrolled forward "
+          f"{err:.4e} (tol {SCAN_ATOL}); loss {loss_s.item():.6f} vs "
+          f"{loss.item():.6f} (difference {d_loss:.3e}); forward "
+          f"{(t1 - t0) * 1e3:.1f} ms unrolled, {(t2 - t1) * 1e3:.1f} ms "
+          f"scanned (host clock, synchronized); launches {launches}")
+    if not (err <= SCAN_ATOL and d_loss <= SCAN_ATOL):
+        raise AssertionError("the scanned forward disagrees with the "
+                             "unrolled one")
+    _check_launches("scanned phase", cfg, launches, 4)
+    del params, scanned
+    _phase_end(f"scanned {SCAN_ARCH}", card, t_phase)
+    return launches["flash_attention"]
 
 
 def check_backend_env() -> None:
@@ -3448,6 +4126,12 @@ def main() -> None:
         card, RG_ARCH, prompts=(1024, 2048), checks=True)
     flash["mamba2_launches"] = lm_serve_phase(
         card, MAMBA_ARCH, prompts=(1024,), checks=True)
+    flash["qwen2_vl_serve_launches"] = vlm_serve_phase(card)
+    flash["musicgen_launches"] = lm_serve_phase(
+        card, MUSICGEN_ARCH, prompts=(1024,), sampled=True)
+    flash.update(lm_train_phase(card))
+    flash["qwen2_vl_train_launches"] = vlm_train_phase(card)
+    flash["scanned_launches"] = scanned_phase(card)
     for name, row in kernels.items():       # every row, flash_attention's too
         row["train_step_launches"] = train_launches.get(name, 0)
         row["stream_launches"] = stream_launches.get(name, 0)

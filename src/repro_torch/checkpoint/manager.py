@@ -11,7 +11,9 @@ keyed by their path in the tree in the port's own flat form
 (``0/layers/0/w``: ``/``-joined dict keys and list positions, the form of
 ``Executable.save_params``); the reference keys its files by JAX's
 key paths, so checkpoints do not cross between the two packages.
-Restore casts each array to its template leaf's dtype and device.
+A bfloat16 leaf is stored as its int16 bits (numpy has no bfloat16).
+Restore casts each array to its template leaf's dtype and device (a
+bfloat16 leaf takes its stored bits back as they are).
 """
 from __future__ import annotations
 
@@ -25,7 +27,24 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.runtime.executable import _flatten_params as _flatten
+from repro_torch.runtime.executable import _leaves
+
+
+def _flatten(tree, copy: bool = False) -> dict:
+    """Flat host arrays of ``tree``'s leaves: a device tensor's are a
+    fresh host copy; a CPU tensor's share its memory unless ``copy``."""
+    out = {}
+    for k, v in _leaves(tree).items():
+        if not isinstance(v, torch.Tensor):
+            out[k] = np.array(v) if copy else np.asarray(v)
+            continue
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            v = v.view(torch.int16)
+        if copy and v.device.type == "cpu":
+            v = v.clone()
+        out[k] = v.cpu().numpy()  # analyze: allow(host-sync)
+    return out
 
 
 def _unflatten(template, arrays: dict, prefix: str = ""):
@@ -37,8 +56,10 @@ def _unflatten(template, arrays: dict, prefix: str = ""):
     if isinstance(template, (list, tuple)):
         return type(template)(_unflatten(v, arrays, f"{prefix}{i}/")
                               for i, v in enumerate(template))
-    return torch.from_numpy(np.array(arrays[prefix[:-1]])).to(
-        device=template.device, dtype=template.dtype)
+    t = torch.from_numpy(np.asarray(arrays[prefix[:-1]]))
+    if template.dtype == torch.bfloat16 and t.dtype == torch.int16:
+        t = t.view(torch.bfloat16)
+    return t.to(device=template.device, dtype=template.dtype)
 
 
 @dataclasses.dataclass
@@ -56,8 +77,8 @@ class CheckpointManager:
     def save(self, tree, step: int) -> None:
         if self.async_save:
             self.wait()
-            # a copy: a CPU tensor's numpy view would see later updates
-            host = {k: a.copy() for k, a in _flatten(tree).items()}
+            # copies: a CPU tensor's numpy view would see later updates
+            host = _flatten(tree, copy=True)
             self._thread = threading.Thread(
                 target=self._save_sync, args=(host, step), daemon=True)
             self._thread.start()
@@ -102,9 +123,8 @@ class CheckpointManager:
 
     def restore(self, template, step: int):
         d = self.dir / f"step_{step:08d}"
-        with np.load(d / "arrays.npz") as npz:
-            arrays = dict(npz)
-        return _unflatten(template, arrays)
+        with np.load(d / "arrays.npz") as npz:   # read leaf by leaf
+            return _unflatten(template, npz)
 
     def restore_latest(self, template):
         self.wait()

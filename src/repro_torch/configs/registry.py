@@ -1,37 +1,51 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port, with the reference's input shapes.
 
-The dense, MoE, hybrid (RG-LRU + local attention) and SSM LMs are
-ported; the reference registry's VLM and audio architectures raise
-``NotImplementedError`` (ROADMAP.md, Queue 1 items 7.5 and 7.6).
+Every architecture of the reference's registry is here: dense, MoE, VLM
+(qwen2-vl-2b: embedding inputs and M-RoPE), audio (musicgen-large: four
+codebooks), hybrid (RG-LRU + local attention) and SSM. ``SHAPES`` and
+``all_cells`` are the reference's assigned (arch x shape) cells;
+``long_500k`` applies only to sub-quadratic archs (SSM/hybrid).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
-    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
-    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
-    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
 }
-# the reference's architectures that are not ported yet, with their item
-UNPORTED = {"qwen2-vl-2b": "7.5 (M-RoPE and embedding inputs)",
-            "musicgen-large": "7.6 (codebooks)"}
 
 ARCHS = tuple(_MODULES)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
 def _module(arch: str):
-    if arch in UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; the port serves {ARCHS} "
-            f"(ROADMAP.md, Queue 1 item {UNPORTED[arch]})")
     if arch not in _MODULES:
         raise ValueError(f"unknown arch {arch!r}; the port serves {ARCHS}")
     return importlib.import_module(_MODULES[arch])
@@ -43,3 +57,15 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def shape_applicable(arch: str, shape: str) -> tuple[bool, str]:
+    """(applicable, reason-if-not)."""
+    cfg = get_config(arch)
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch — long_500k skipped (DESIGN.md §4)"
+    return True, ""
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in ARCHS for s in SHAPES]

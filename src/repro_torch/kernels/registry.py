@@ -4,8 +4,8 @@ Two backends ship, with the reference package's op names:
 
   cuda        the default: the hand-written kernels under ``csrc/``. Each
               wrapper runs its plain version only for CPU tensors; for
-              CUDA tensors it launches the kernel or raises. The GNN ops
-              are differentiable: see :func:`_with_plain_vjp`.
+              CUDA tensors it launches the kernel or raises. Every op is
+              differentiable: see :func:`_with_plain_vjp`.
   reference   the plain PyTorch versions (:mod:`repro_torch.kernels.ref`)
               on whatever device the tensors are on.
 
@@ -156,7 +156,10 @@ def _gather_max(kernel, edge_src, edge_dst, edge_valid, h, index):
 class CudaBackend:
     """The CUDA kernels (plain versions for CPU tensors).
 
-    The GNN ops are differentiable through :func:`_with_plain_vjp`. Where
+    Every op is differentiable through :func:`_with_plain_vjp` (the
+    gathers' max through :func:`_gather_max`); the attention's backward
+    is autograd of ``ref.flash_attention`` with the same ``causal``,
+    ``window`` and ``scale``. Where
     the caller keeps the graph's CSR index, the backward walks it
     (``ref.spmm_indexed``, ``ref.fused_gnn_indexed``,
     ``ref.seg_gather_indexed``; the max's backward is
@@ -225,8 +228,12 @@ class CudaBackend:
         return _with_plain_vjp(kernel, plain, h)
 
     def attention(self, q, k, v, *, causal=True, window=None, scale=None):
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+        return _with_plain_vjp(
+            lambda q, k, v: flash_attention(q, k, v, causal=causal,
+                                            window=window, scale=scale),
+            lambda q, k, v: ref.flash_attention(q, k, v, causal=causal,
+                                                scale=scale, window=window),
+            q, k, v)
 
 
 class ReferenceBackend:

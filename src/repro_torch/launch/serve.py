@@ -157,6 +157,9 @@ def build_lm_engine(args) -> ServeEngine:
     ``--no-smoke``) with random weights drawn on the device from seed 0;
     max_len fits ``--prompt-len`` + ``--new-tokens``."""
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"{args.arch} needs frontend embeddings; serve "
+                         f"token archs")
     device = resolve_device(args.device)
     gen = torch.Generator(device).manual_seed(0)
     params = lm.init_params(cfg, gen)
@@ -167,9 +170,12 @@ def build_lm_engine(args) -> ServeEngine:
 
 def lm_requests(cfg, n: int, prompt_len: int, new_tokens: int,
                 temperature: float = 0.0, seed: int = 0) -> list[Request]:
-    """``n`` requests with random prompts of ``prompt_len`` tokens."""
+    """``n`` requests with random prompts of ``prompt_len`` tokens
+    ((prompt_len, C) for C codebooks)."""
     rng = np.random.default_rng(seed)
-    return [Request(rng.integers(0, cfg.vocab_size, prompt_len)
+    shape = (prompt_len, cfg.n_codebooks) if cfg.n_codebooks > 1 \
+        else (prompt_len,)
+    return [Request(rng.integers(0, cfg.vocab_size, shape)
                     .astype(np.int32), max_new_tokens=new_tokens,
                     temperature=temperature) for _ in range(n)]
 

@@ -1,25 +1,36 @@
 """Decoder LM: the port of the reference's unified ``models/lm.py``.
 
-One structure function describes every block kind the reference's
-decoder has — ``attn``, ``local_attn`` (a sliding window of
-``cfg.local_window``), ``rglru`` (RecurrentGemma) and ``mamba2`` (SSD) —
-with a dense MLP, a MoE layer (``cfg.is_moe_layer``) or none
-(``mlp_kind="none"``) after it. Configs with token inputs, one codebook
-and plain RoPE run; the rest raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 items 7.5–7.6). Parameters are the reference's tree — dicts and
-lists with the same key names, shapes and dtypes — so they cross between
-the packages through :func:`params_from_numpy`.
+One structure function describes every architecture of the reference's
+fleet — dense, MoE, VLM (embedding inputs and M-RoPE), audio (summed
+codebook embeddings and parallel heads), hybrid and SSM — through the
+config's per-layer block pattern: ``attn``, ``local_attn`` (a sliding
+window of ``cfg.local_window``), ``rglru`` (RecurrentGemma) and
+``mamba2`` (SSD), each followed by a dense MLP, a MoE layer
+(``cfg.is_moe_layer``) or none (``mlp_kind="none"``). Parameters are the
+reference's tree — dicts and lists with the same key names, shapes and
+dtypes — so they cross between the packages through
+:func:`params_from_numpy`.
 
 Entry points:
     init_params(cfg, gen)                       # on gen.device
-    forward(params, cfg, batch)                 # (B,S) -> logits (B,S,V)
+    forward(params, cfg, batch)                 # -> logits (B,S,V) [or (B,S,C,V)]
+    loss_fn(params, cfg, batch)                 # next-token CE
+    forward_scanned / loss_fn_scanned           # over stacked layers
     prefill(params, cfg, batch, max_len)        # -> (logits, caches)
     decode_step(params, cfg, batch, caches)     # one token + caches
 
-Prefill and forward run attention through the kernel registry
-(``backend=``: ``cuda`` by default, or ``reference``). The dense
-projections, MLP, MoE, recurrences, norms, RoPE, head and decode
-attention are plain PyTorch, as the reference leaves them to XLA.
+A batch holds ``tokens`` (B, S) — (B, S, C) for C codebooks — or, for
+``input_mode="embeddings"``, ``embeddings`` (B, S, D) from the (stubbed)
+modality frontend; optionally ``positions`` ((B, S), or (3, B, S) for
+M-RoPE) and, for the losses, ``labels`` shaped like the tokens (−100
+ignored).
+
+Forward, the losses and prefill run attention through the kernel
+registry (``backend=``: ``cuda`` by default, or ``reference``); on
+``cuda`` its backward is autograd of the plain version, as the
+reference's. The dense projections, MLP, MoE, recurrences, norms, RoPE,
+head and decode attention are plain PyTorch, as the reference leaves
+them to XLA.
 """
 from __future__ import annotations
 
@@ -27,37 +38,19 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.attention import (attn_apply, attn_cache_struct,
                                       attn_decode, attn_prefill_cache,
                                       attn_struct)
-from repro_torch.nn.layers import init_leaf, mlp_apply, mlp_struct, rms_norm
+from repro_torch.nn.layers import (dense, init_leaf, mlp_apply, mlp_struct,
+                                   rms_norm)
 from repro_torch.nn.moe import moe_apply, moe_struct
 from repro_torch.nn.rglru import (rglru_apply, rglru_cache_struct,
                                   rglru_decode, rglru_struct)
-from repro_torch.nn.ssd import (ssd_cache_struct, ssd_decode,
+from repro_torch.nn.ssd import (ssd_apply, ssd_cache_struct, ssd_decode,
                                 ssd_prefill_cache, ssd_struct)
-
-BLOCK_KINDS = ("attn", "local_attn", "rglru", "mamba2")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless the port runs ``cfg``."""
-    missing = []
-    if cfg.input_mode != "tokens":
-        missing.append(f"input_mode {cfg.input_mode!r} (item 7.5)")
-    if cfg.rope_kind != "rope":
-        missing.append(f"rope_kind {cfg.rope_kind!r} (item 7.5)")
-    if cfg.n_codebooks != 1:
-        missing.append("codebooks (item 7.6)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"Queue 1)")
-    unknown = set(cfg.pattern) - set(BLOCK_KINDS)
-    if unknown:
-        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +66,10 @@ def _layer_struct(leaf, i: int, cfg: ModelConfig) -> dict:
         p["attn"] = attn_struct(leaf, f"{pre}.attn", cfg)
     elif kind == "rglru":
         p["mixer"] = rglru_struct(leaf, f"{pre}.rglru", cfg)
-    else:
+    elif kind == "mamba2":
         p["mixer"] = ssd_struct(leaf, f"{pre}.ssd", cfg)
+    else:
+        raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
     if cfg._layer_has_mlp(i):
         p["ln2"] = leaf(f"{pre}.ln2", (cfg.d_model,), ("embed",), init="zeros")
         if cfg.is_moe_layer(i):
@@ -86,20 +81,33 @@ def _layer_struct(leaf, i: int, cfg: ModelConfig) -> dict:
 
 
 def param_struct(cfg: ModelConfig, leaf) -> dict:
-    check_supported(cfg)
-    d, v = cfg.d_model, cfg.vocab_size
-    p: dict[str, Any] = {
-        "embed": leaf("embed", (v, d), ("vocab", "embed"), init="embed")}
+    d, v, c = cfg.d_model, cfg.vocab_size, cfg.n_codebooks
+    p: dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        if c == 1:
+            p["embed"] = leaf("embed", (v, d), ("vocab", "embed"),
+                              init="embed")
+        else:
+            p["embed"] = leaf("embed", (c, v, d),
+                              ("codebooks", "vocab", "embed"), init="embed")
+    else:   # embeddings supplied by the (stubbed) modality frontend
+        p["embed_proj"] = leaf("embed_proj", (d, d), ("embed_in", "embed"))
     p["layers"] = [_layer_struct(leaf, i, cfg) for i in range(cfg.n_layers)]
     p["final_norm"] = leaf("final_norm", (d,), ("embed",), init="zeros")
-    if not cfg.tie_embeddings:
-        p["lm_head"] = leaf("lm_head", (d, v), ("embed", "vocab"))
+    if not cfg.tie_embeddings or cfg.input_mode != "tokens":
+        if c == 1:
+            p["lm_head"] = leaf("lm_head", (d, v), ("embed", "vocab"))
+        else:
+            p["lm_head"] = leaf("lm_head", (c, d, v),
+                                ("codebooks", "embed", "vocab"))
     return p
 
 
 def uncounted_params(cfg: ModelConfig) -> int:
-    """Parameters that the reference's analytic ``cfg.num_params()``
-    leaves out: the conv biases of the rglru and mamba2 blocks. A
+    """What a parameter tree holds beyond the reference's analytic
+    ``cfg.num_params()``: the conv biases of the rglru and mamba2 blocks,
+    which it leaves out, and for embedding inputs the (d, d)
+    ``embed_proj`` less the (V, d) embedding it counts (negative then). A
     parameter tree holds ``num_params() + uncounted_params()`` numbers."""
     total = 0
     for kind in cfg.pattern:
@@ -108,6 +116,11 @@ def uncounted_params(cfg: ModelConfig) -> int:
         elif kind == "mamba2":
             total += cfg.ssm.expand * cfg.d_model \
                 + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    if cfg.input_mode != "tokens":
+        total += cfg.d_model * cfg.d_model \
+            - cfg.vocab_size * cfg.d_model * cfg.n_codebooks
+        if cfg.tie_embeddings:   # the head is there all the same
+            total += cfg.vocab_size * cfg.d_model * cfg.n_codebooks
     return total
 
 
@@ -146,23 +159,45 @@ def params_from_numpy(tree, device: torch.device | str):
 # ---------------------------------------------------------------------------
 
 def _embed_in(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    x = params["embed"][batch["tokens"]]
+    if cfg.input_mode == "embeddings":
+        # no emb_scale here: the reference returns the projection as is
+        return dense(batch["embeddings"].to(cfg.cdtype), params["embed_proj"])
+    toks = batch["tokens"]
+    if cfg.n_codebooks == 1:
+        x = params["embed"][toks]
+    else:   # MusicGen: the codebooks' embeddings summed in order, toks (B,S,C)
+        x = sum(params["embed"][c][toks[..., c]]
+                for c in range(cfg.n_codebooks))
     return x.to(cfg.cdtype) * cfg.emb_scale
 
 
 def _logits_out(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"].to(x.dtype).T)
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
+        emb = params["embed"].to(x.dtype)
+        if cfg.n_codebooks == 1:
+            logits = torch.matmul(x, emb.T)
+        else:
+            logits = torch.einsum("bsd,cvd->bscv", x, emb)
     else:
-        logits = torch.matmul(x, params["lm_head"].to(x.dtype))
+        head = params["lm_head"].to(x.dtype)
+        if cfg.n_codebooks == 1:
+            logits = torch.matmul(x, head)
+        else:
+            logits = torch.einsum("bsd,cdv->bscv", x, head)
     return logits * cfg.logit_scale
 
 
-def _positions(batch, b: int, s: int, device) -> torch.Tensor:
+def _positions(cfg: ModelConfig, batch, b: int, s: int,
+               device) -> torch.Tensor:
+    """``batch["positions"]``, else 0..S-1 for every row: (B, S), or
+    (3, B, S) with equal rows for M-RoPE."""
     if "positions" in batch:
         return batch["positions"]
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    if cfg.rope_kind == "mrope":
+        return pos.expand(3, b, s)
+    return pos
 
 
 def _window(cfg: ModelConfig, kind: str) -> int | None:
@@ -178,36 +213,128 @@ def _ffn_residual(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + cfg.residual_scale * ffn
 
 
-def _prefill_layers(params, cfg: ModelConfig, batch, max_len, backend):
-    """The layers over a whole sequence: (hidden states (B,S,D), per-layer
-    decode caches, or None when ``max_len`` is None)."""
-    check_supported(cfg)
+def _layer(lp, x: torch.Tensor, cfg: ModelConfig, kind: str, positions,
+           backend, max_len: int | None = None):
+    """One layer over a whole sequence: (its output (B,S,D), its decode
+    cache, or None when ``max_len`` is None)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    cache = None
+    if kind in ("attn", "local_attn"):
+        window = _window(cfg, kind)
+        mix, (k, v) = attn_apply(lp["attn"], h, cfg, positions,
+                                 window=window, return_kv=True,
+                                 backend=backend)
+        if max_len is not None:
+            cache = attn_prefill_cache(k, v, max_len, window)
+    elif kind == "rglru":
+        if max_len is None:
+            mix = rglru_apply(lp["mixer"], h, cfg)
+        else:
+            mix, cache = rglru_apply(lp["mixer"], h, cfg, return_state=True)
+    elif max_len is None:
+        mix = ssd_apply(lp["mixer"], h, cfg)
+    else:
+        mix, cache = ssd_prefill_cache(lp["mixer"], h, cfg)
+    return _ffn_residual(lp, x + cfg.residual_scale * mix, cfg), cache
+
+
+def _layer_apply(lp, x: torch.Tensor, cfg: ModelConfig, i: int, positions,
+                 backend) -> torch.Tensor:
+    """Layer ``i`` (its kind ``cfg.pattern[i]``) over a whole sequence."""
+    return _layer(lp, x, cfg, cfg.pattern[i], positions, backend)[0]
+
+
+def _inputs(params, cfg: ModelConfig, batch):
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
-    positions = _positions(batch, b, s, x.device)
-    caches = []
-    for kind, lp in zip(cfg.pattern, params["layers"]):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if kind in ("attn", "local_attn"):
-            window = _window(cfg, kind)
-            mix, (k, v) = attn_apply(lp["attn"], h, cfg, positions,
-                                     window=window, return_kv=True,
-                                     backend=backend)
-            cache = None if max_len is None \
-                else attn_prefill_cache(k, v, max_len, window)
-        elif kind == "rglru":
-            mix, cache = rglru_apply(lp["mixer"], h, cfg, return_state=True)
+    return x, _positions(cfg, batch, b, s, x.device)
+
+
+def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
+            backend=None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B,S,V) [or (B,S,C,V)]. ``remat``
+    recomputes each layer's activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping them."""
+    x, positions = _inputs(params, cfg, batch)
+    for i, lp in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(_layer_apply, lp, x, cfg, i, positions, backend,
+                           use_reentrant=False)
         else:
-            mix, cache = ssd_prefill_cache(lp["mixer"], h, cfg)
-        caches.append(cache)
-        x = _ffn_residual(lp, x + cfg.residual_scale * mix, cfg)
-    return x, (None if max_len is None else caches)
-
-
-def forward(params, cfg: ModelConfig, batch, *, backend=None) -> torch.Tensor:
-    """Full-sequence forward -> logits (B,S,V)."""
-    x, _ = _prefill_layers(params, cfg, batch, None, backend)
+            x = _layer_apply(lp, x, cfg, i, positions, backend)
     return _logits_out(params, cfg, x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean next-token cross entropy over ``labels >= 0`` (−100 is
+    ignored), in float32: logits (..., V), labels (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
+            backend=None) -> torch.Tensor:
+    """Next-token cross entropy. labels: (B,S) or (B,S,C); −100 ignored."""
+    logits = forward(params, cfg, batch, remat=remat, backend=backend)
+    return cross_entropy(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Scanned (stacked-layer) variant: the counterpart of the reference's
+# lax.scan over layers grouped by their position in the block pattern
+# ---------------------------------------------------------------------------
+
+def pattern_period(cfg: ModelConfig) -> int:
+    pat = cfg.pattern
+    for p in (1, 2, 3, 4, 6):
+        if len(pat) >= p and all(pat[i] == pat[i % p] for i in range(len(pat))):
+            return p
+    return len(pat)
+
+
+def _slice(tree, k: int):
+    """Group ``k`` of a stacked layer tree: every leaf's slice [k]."""
+    if isinstance(tree, dict):
+        return {key: _slice(v, k) for key, v in tree.items()}
+    return tree[k]
+
+
+def forward_scanned(params, cfg: ModelConfig, batch, *, remat: bool = False,
+                    backend=None) -> torch.Tensor:
+    """Forward over stacked layers. ``params``: the embedding and head
+    leaves of :func:`param_struct`, ``"stack"`` — a tuple of p layer
+    trees (p = :func:`pattern_period`) whose leaves carry a leading axis
+    of nf = n_layers // p groups — and ``"trail"``, a list of the
+    n_layers % p trailing layer trees. Group k applies layers j + k·p
+    (j < p) from slice k of each stacked leaf; ``remat`` recomputes a
+    group's activations in the backward, as the reference's
+    ``jax.checkpoint`` of its scan body."""
+    p = pattern_period(cfg)
+    x, positions = _inputs(params, cfg, batch)
+
+    def group(x, k):
+        for j in range(p):
+            x = _layer_apply(_slice(params["stack"][j], k), x, cfg, j,
+                             positions, backend)
+        return x
+
+    nf = cfg.n_layers // p
+    for k in range(nf):
+        x = checkpoint(group, x, k, use_reentrant=False) if remat \
+            else group(x, k)
+    for t, lp in enumerate(params["trail"]):
+        x = _layer_apply(lp, x, cfg, nf * p + t, positions, backend)
+    return _logits_out(params, cfg, x)
+
+
+def loss_fn_scanned(params, cfg: ModelConfig, batch, *, remat: bool = False,
+                    backend=None) -> torch.Tensor:
+    logits = forward_scanned(params, cfg, batch, remat=remat, backend=backend)
+    return cross_entropy(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +343,6 @@ def forward(params, cfg: ModelConfig, batch, *, backend=None) -> torch.Tensor:
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                  device: torch.device | str | None = None) -> list:
-    check_supported(cfg)
     caches = []
     for kind in cfg.pattern:
         if kind in ("attn", "local_attn"):
@@ -230,14 +356,21 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int, *, backend=None):
-    """Run the prompt, return (last-position logits (B,1,V), caches)."""
-    x, caches = _prefill_layers(params, cfg, batch, max_len, backend)
+    """Run the prompt, return (last-position logits (B,1,V) [or
+    (B,1,C,V)], caches)."""
+    x, positions = _inputs(params, cfg, batch)
+    caches = []
+    for kind, lp in zip(cfg.pattern, params["layers"]):
+        x, cache = _layer(lp, x, cfg, kind, positions, backend, max_len)
+        caches.append(cache)
     return _logits_out(params, cfg, x[:, -1:]), caches
 
 
 def decode_step(params, cfg: ModelConfig, batch, caches):
-    """One decode step. batch: {"tokens": (B,1), "pos": int}. Updates the
-    caches in place; returns (logits (B,1,V), caches)."""
+    """One decode step. batch: {"tokens": (B,1) or (B,1,C) |
+    "embeddings": (B,1,D), "pos": int}. M-RoPE rotates the token by
+    ``pos`` in all three rows, as the reference does. Updates the caches
+    in place; returns (logits (B,1,V) [or (B,1,C,V)], caches)."""
     pos = int(batch["pos"])
     x = _embed_in(params, cfg, batch)
     for kind, lp, cache in zip(cfg.pattern, params["layers"], caches):

@@ -1,4 +1,4 @@
-"""Attention for the LMs: GQA, RoPE, qk-norm, QKV bias, local
+"""Attention for the LMs: GQA, RoPE or M-RoPE, qk-norm, QKV bias, local
 windows, full-sequence (prefill) attention and ring-buffer decode caches.
 
 Full-sequence attention goes through the kernel registry's ``attention``
@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.layers import Leaf, dense, rms_norm
-from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.rope import apply_mrope, apply_rope
 
 NEG = -0.7 * torch.finfo(torch.float32).max
 
@@ -61,10 +61,12 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _rope_qk(q, k, positions, cfg: ModelConfig):
-    if cfg.rope_kind != "rope":
-        raise NotImplementedError(
-            f"rope_kind {cfg.rope_kind!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 7.5: M-RoPE)")
+    """RoPE with (B, S) positions, or M-RoPE with (3, B, S) ones."""
+    if cfg.rope_kind == "mrope":
+        return (apply_mrope(q, positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta,
+                            cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -108,7 +110,9 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     b = x.shape[0]
     dh, hkv, g = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(p, x, cfg)
-    pos1 = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    # M-RoPE rotates the new token by the same pos in all three rows
+    shape = (3, b, 1) if cfg.rope_kind == "mrope" else (b, 1)
+    pos1 = torch.full(shape, pos, dtype=torch.int32, device=x.device)
     q, k_new = _rope_qk(q, k_new, pos1, cfg)
     k, v = cache["k"], cache["v"]
     w = k.shape[2]

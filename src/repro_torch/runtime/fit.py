@@ -296,8 +296,9 @@ class TrainableExecutable:
         Executable, and return the ``(step, loss)`` history."""
         from repro_torch.training.train_loop import TrainLoop
 
-        loop = TrainLoop(data_iter=self.data, ckpt_manager=ckpt_manager,
-                         ckpt_every=ckpt_every, log_every=log_every)
+        loop = TrainLoop(cfg=None, opt_cfg=self.opt_cfg, data_iter=self.data,
+                         ckpt_manager=ckpt_manager, ckpt_every=ckpt_every,
+                         log_every=log_every)
         self.params, self.opt_state, history = loop.run(
             self.params, self.opt_state, steps, train_step=self.step_fn,
             log=log)

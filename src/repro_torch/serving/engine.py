@@ -5,7 +5,11 @@ ring buffers of local attention, RG-LRU and SSD states).
 Requests are grouped into fixed batch slots; a batch prefills together
 (all prompts of one length) and then decodes lock-step with per-request
 stop lengths. Greedy (argmax) or temperature sampling, the latter from a
-``torch.Generator`` seeded with the batch's seed.
+``torch.Generator`` seeded with the batch's seed. A codebook model
+(``cfg.n_codebooks`` C > 1, MusicGen) takes (S, C) prompts and emits C
+tokens a step, sampled per codebook. Token inputs only: an
+embedding-input config (the VLM) is not served here, as in the
+reference.
 
 The engine implements the serving :class:`~repro_torch.serving.api.Engine`
 step protocol — ``route`` buckets requests by prompt length, ``step`` runs
@@ -32,7 +36,7 @@ from repro_torch.runtime.api import resolve_device
 
 @dataclasses.dataclass
 class Request:
-    prompt: np.ndarray            # (S,) int32
+    prompt: np.ndarray            # (S,) int32, or (S, C) for C codebooks
     max_new_tokens: int = 32
     temperature: float = 0.0      # 0 => greedy
 
@@ -46,7 +50,9 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, max_len: int = 512, *,
                  device: torch.device | str | None = None,
                  backend: str | None = None):
-        lm.check_supported(cfg)
+        if cfg.input_mode != "tokens":
+            raise ValueError(f"{cfg.name} takes frontend embeddings; the "
+                             f"engine serves token inputs")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = lm.params_from_numpy(params, self.device)
@@ -80,7 +86,8 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, requests: Sequence[Request], seed: int = 0):
         """Serve one batch of equal-length prompts. Returns a list of
-        generated token arrays, (max_new_tokens,) int32 each."""
+        generated token arrays, (max_new_tokens,) int32 each, or
+        (max_new_tokens, C) for C codebooks."""
         cfg = self.cfg
         b = len(requests)
         plen = len(requests[0].prompt)
@@ -111,7 +118,7 @@ class ServeEngine:
             t0 = time.perf_counter()
             logits, caches = lm.decode_step(
                 self.params, cfg, {"tokens": cur[:, None], "pos": plen + step},
-                caches)
+                caches)   # cur[:, None]: (B, 1) or (B, 1, C)
             cur = self._sample(logits[:, 0], requests, gen)
             cur_host = cur.cpu().numpy()  # analyze: allow(host-sync)
             self.stats["decode_steps"] += 1
@@ -120,14 +127,17 @@ class ServeEngine:
         return [np.asarray(o, np.int32) for o in outs]
 
     def _sample(self, logits: torch.Tensor, requests, gen: torch.Generator):
-        """(B, V) logits -> (B,) int32 tokens: argmax where the request's
-        temperature is 0, else a draw from softmax(logits / T)."""
+        """(B, V) logits -> (B,) int32 tokens, or (B, C, V) -> (B, C):
+        argmax where the request's temperature is 0, else a draw from
+        softmax(logits / T), one per codebook."""
         greedy = torch.argmax(logits, dim=-1)
         temps_host = np.asarray([r.temperature for r in requests], np.float32)
         if temps_host.max() == 0.0:
             return greedy.to(torch.int32)
         temps = torch.from_numpy(temps_host).to(logits.device)
-        probs = torch.softmax(
-            logits.float() / temps.clamp(min=1e-4)[:, None], dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        return torch.where(temps <= 0, greedy, sampled).to(torch.int32)
+        t = temps.clamp(min=1e-4).reshape((-1,) + (1,) * (logits.dim() - 1))
+        probs = torch.softmax(logits.float() / t, dim=-1)
+        sampled = torch.multinomial(probs.reshape(-1, logits.shape[-1]), 1,
+                                    generator=gen).reshape(greedy.shape)
+        keep = (temps <= 0).reshape((-1,) + (1,) * (greedy.dim() - 1))
+        return torch.where(keep, greedy, sampled).to(torch.int32)

@@ -106,8 +106,12 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
-                 schedule: Schedule | None = None):
-    """Returns (new_params, new_opt_state, stats)."""
+                 schedule: Schedule | None = None, *, donate: bool = False):
+    """Returns (new_params, new_opt_state, stats). With ``donate`` the new
+    parameters and moments are written into the tensors of ``params``
+    and ``opt_state`` (the same numbers, computed one leaf at a time),
+    which are returned: the counterpart of the reference's jit with
+    ``donate_argnums``, so a step holds one copy of the moments."""
     sched = schedule or make_schedule(cfg)
     step = opt_state["step"] + 1
     lr = sched(step)
@@ -133,7 +137,12 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
         newp = p.float() - lr * delta
         return newp.to(p.dtype), m, v
 
-    out = [upd(*leaves) for leaves in zip(
+    def upd_into(p, g, m, v):
+        for old, new in zip((p, m, v), upd(p, g, m, v)):
+            old.copy_(new)
+        return p, m, v
+
+    out = [(upd_into if donate else upd)(*leaves) for leaves in zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(opt_state["m"]),
         tree_leaves(opt_state["v"]))]
     new_params, new_m, new_v = (tree_unflatten(params, [o[i] for o in out])

@@ -8,7 +8,10 @@ qwen2.5-3b (QKV bias, tied embeddings), minicpm-2b (tied embeddings, MHA,
 the μP embedding, residual and logit scales), command-r-plus-104b
 (GQA 4:1, untied head), qwen2-moe-a2.7b (MoE, softmax router, shared
 experts), llama4-scout-17b-a16e (MoE, sigmoid router), recurrentgemma-2b
-(RG-LRU and local attention, window 16) and mamba2-1.3b (SSD, no MLP).
+(RG-LRU and local attention, window 16), mamba2-1.3b (SSD, no MLP),
+qwen2-vl-2b (embedding inputs, M-RoPE) and musicgen-large (four
+codebooks). The last two are held in more depth in
+tests/test_torch_lm_inputs.py.
 On the CPU the port's attention runs the plain version of its
 flash-attention kernel. The modules of the last four are held alone in
 tests/test_torch_lm_blocks.py.
@@ -40,7 +43,10 @@ from repro_torch.serving import (Completed, Rejected, Request,
 
 DENSE_ARCHS = ("qwen3-8b", "qwen2.5-3b", "minicpm-2b", "command-r-plus-104b")
 ARCHS = DENSE_ARCHS + ("qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
-                       "recurrentgemma-2b", "mamba2-1.3b")
+                       "recurrentgemma-2b", "mamba2-1.3b", "qwen2-vl-2b",
+                       "musicgen-large")
+# the archs the ServeEngine takes (token inputs), as in the reference
+TOKEN_ARCHS = tuple(a for a in ARCHS if a != "qwen2-vl-2b")
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=1e-1, rtol=5e-2)
 
@@ -110,6 +116,30 @@ def _j(jx, tree):
     """A numpy tree as JAX arrays (numpy bfloat16 leaves would promote
     under numpy's own arithmetic inside the reference)."""
     return jx.jax.tree_util.tree_map(jx.jnp.asarray, tree)
+
+
+def _inputs(cfg, rng, b: int, s: int) -> dict:
+    """A numpy model input of ``cfg``'s kind: tokens (b, s), or (b, s, C)
+    for C codebooks, or float32 embeddings (b, s, d)."""
+    if cfg.input_mode == "embeddings":
+        return {"embeddings":
+                rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)}
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks > 1 else (b, s)
+    return {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+
+
+def _sliced(batch: dict, sl) -> dict:
+    """Every input of ``batch`` over the positions ``sl``."""
+    return {k: v[:, sl] for k, v in batch.items()}
+
+
+def _jb(jx, batch: dict) -> dict:
+    return {k: jx.jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tb(batch: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
 
 
 def _f32(x):
@@ -310,13 +340,13 @@ def test_forward_matches_reference(jx, arch, dtype, monkeypatch):
     if routed:
         jcfg, tcfg = _no_drop(jcfg), _no_drop(tcfg)
     p = _params(jx, jcfg)
-    toks = np.random.default_rng(5).integers(
-        0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    batch = _inputs(jcfg, np.random.default_rng(5), 2, 24)
     jrec, trec = _record_router_logits(jx, monkeypatch)
-    exp = jx.lm.forward(_j(jx, p), jcfg, {"tokens": jx.jnp.asarray(toks)})
-    out = t_lm.forward(t_lm.params_from_numpy(p, "cpu"), tcfg,
-                       {"tokens": torch.from_numpy(toks)})
-    assert out.shape == (2, 24, jcfg.vocab_size)
+    exp = jx.lm.forward(_j(jx, p), jcfg, _jb(jx, batch))
+    out = t_lm.forward(t_lm.params_from_numpy(p, "cpu"), tcfg, _tb(batch))
+    assert out.shape == (2, 24) + ((jcfg.n_codebooks,)
+                                   if jcfg.n_codebooks > 1 else ()) \
+        + (jcfg.vocab_size,)
     assert out.dtype == getattr(torch, dtype)
     assert len(jrec) == len(trec) == sum(
         tcfg.is_moe_layer(i) for i in range(tcfg.n_layers))
@@ -340,24 +370,22 @@ def test_prefill_decode_match_reference_and_own_forward(jx, arch):
     p = _params(jx, jcfg)
     tp = t_lm.params_from_numpy(p, "cpu")
     b, s, max_len = 2, 24, 32
-    toks = np.random.default_rng(6).integers(
-        0, jcfg.vocab_size, (b, s + 3)).astype(np.int32)
-    tt = torch.from_numpy(toks)
-    full = t_lm.forward(tp, tcfg, {"tokens": tt})
-    logits, caches = t_lm.prefill(tp, tcfg, {"tokens": tt[:, :s]}, max_len)
+    batch = _inputs(jcfg, np.random.default_rng(6), b, s + 3)
+    full = t_lm.forward(tp, tcfg, _tb(batch))
+    logits, caches = t_lm.prefill(tp, tcfg, _tb(_sliced(batch, slice(0, s))),
+                                  max_len)
     jp = _j(jx, p)
-    jlogits, jcaches = jx.lm.prefill(jp, jcfg,
-                                     {"tokens": jx.jnp.asarray(toks[:, :s])},
-                                     max_len)
+    jlogits, jcaches = jx.lm.prefill(
+        jp, jcfg, _jb(jx, _sliced(batch, slice(0, s))), max_len)
     np.testing.assert_allclose(_f32(logits[:, 0]), _f32(full[:, s - 1]),
                                atol=2e-4, rtol=2e-4)
     _close(logits, jlogits, "float32")
     for t in range(s, s + 3):
-        logits, caches = t_lm.decode_step(
-            tp, tcfg, {"tokens": tt[:, t:t + 1], "pos": t}, caches)
+        step = _sliced(batch, slice(t, t + 1))
+        logits, caches = t_lm.decode_step(tp, tcfg, {**_tb(step), "pos": t},
+                                          caches)
         jlogits, jcaches = jx.lm.decode_step(
-            jp, jcfg, {"tokens": jx.jnp.asarray(toks[:, t:t + 1]),
-                      "pos": jx.jnp.int32(t)}, jcaches)
+            jp, jcfg, {**_jb(jx, step), "pos": jx.jnp.int32(t)}, jcaches)
         np.testing.assert_allclose(_f32(logits[:, 0]), _f32(full[:, t]),
                                    atol=5e-4, rtol=5e-4)
         _close(logits, jlogits, "float32")
@@ -396,27 +424,39 @@ def test_params_from_numpy_keeps_dtypes_bit_exact(jx):
 
 
 def test_unported_archs_and_blocks_raise():
-    """Only the VLM and audio archs (items 7.5 and 7.6) are not ported;
-    a local_attn pattern builds."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*7\.5"):
-        t_configs.get_config("qwen2-vl-2b")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*7\.6"):
-        t_configs.get_smoke("musicgen-large")
+    """The archs that waited for items 7.5 and 7.6 (qwen2-vl-2b,
+    musicgen-large) and the three fields they need (``rope_kind="mrope"``,
+    ``input_mode="embeddings"``, ``n_codebooks`` 4) now build, as a
+    local_attn pattern does; only an unknown block kind still raises
+    (``ValueError``, where the layer is built). ``ARCHS`` holds the
+    reference's ten, in its order."""
     cfg = dataclasses.replace(t_configs.get_smoke("qwen3-8b"),
                               block_pattern=("attn", "local_attn"),
                               local_window=8)
     params = t_lm.init_params(cfg, torch.Generator().manual_seed(0))
     assert "attn" in params["layers"][1]
-    for field, value, item in (("rope_kind", "mrope", "7.5"),
-                               ("input_mode", "embeddings", "7.5"),
-                               ("n_codebooks", 4, "7.6")):
-        bad = dataclasses.replace(cfg, **{field: value})
-        with pytest.raises(NotImplementedError, match=item):
-            t_lm.init_params(bad, torch.Generator().manual_seed(0))
+    for arch in ("qwen2-vl-2b", "musicgen-large"):
+        assert t_configs.get_config(arch).name == arch
+        t_lm.init_params(t_configs.get_smoke(arch),
+                         torch.Generator().manual_seed(0))
+    for field, value, leaf, shape in (
+            ("rope_kind", "mrope", "embed", (256, 64)),
+            ("input_mode", "embeddings", "embed_proj", (64, 64)),
+            ("n_codebooks", 4, "lm_head", (4, 64, 256))):
+        bad = dataclasses.replace(cfg, **{field: value},
+                                  mrope_sections=(2, 3, 3))
+        built = t_lm.init_params(bad, torch.Generator().manual_seed(0))
+        assert tuple(built[leaf].shape) == shape
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        t_lm.init_params(dataclasses.replace(cfg,
+                                             block_pattern=("attn", "conv")),
+                         torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="unknown arch"):
+        t_configs.get_config("qwen2-vl-7b")
     assert t_configs.ARCHS == (
-        "command-r-plus-104b", "llama4-scout-17b-a16e", "mamba2-1.3b",
-        "minicpm-2b", "qwen2-moe-a2.7b", "qwen2.5-3b", "qwen3-8b",
-        "recurrentgemma-2b")
+        "llama4-scout-17b-a16e", "qwen2-moe-a2.7b", "qwen2.5-3b", "qwen3-8b",
+        "minicpm-2b", "command-r-plus-104b", "qwen2-vl-2b", "musicgen-large",
+        "recurrentgemma-2b", "mamba2-1.3b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -456,7 +496,7 @@ def test_full_configs_match_assignment_and_param_counts():
 # Serving
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_generate_greedy_matches_reference_engine(jx, arch):
     """Mirrors tests/test_serving.py::test_greedy_matches_forward_argmax:
     the same batch through both engines gives the same tokens (MoE at
@@ -466,8 +506,7 @@ def test_generate_greedy_matches_reference_engine(jx, arch):
     p = _params(jx, jcfg)
     rng = np.random.default_rng(0)
     plen = 12 if jcfg.local_window is None else jcfg.local_window + 4
-    prompts = [rng.integers(0, jcfg.vocab_size, plen).astype(np.int32)
-               for _ in range(2)]
+    prompts = [_inputs(jcfg, rng, 1, plen)["tokens"][0] for _ in range(2)]
     exp = jx.ServeEngine(jcfg, _j(jx, p), max_len=48).generate(
         [jx.Request(q, max_new_tokens=6) for q in prompts])
     eng = ServeEngine(tcfg, p, max_len=48, device="cpu")
@@ -476,12 +515,12 @@ def test_generate_greedy_matches_reference_engine(jx, arch):
         np.testing.assert_array_equal(o, e)
     # ... and equal the argmax of the port's own full forward, step by step
     for i, q in enumerate(prompts):
-        seq = list(q)
+        seq = torch.from_numpy(q)[None]
         for _ in range(6):
-            logits = t_lm.forward(eng.params, tcfg,
-                                  {"tokens": torch.tensor([seq])})
-            seq.append(int(torch.argmax(logits[0, -1])))
-        np.testing.assert_array_equal(out[i], np.asarray(seq[len(q):]))
+            logits = t_lm.forward(eng.params, tcfg, {"tokens": seq})
+            nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            seq = torch.cat([seq, nxt], dim=1)
+        np.testing.assert_array_equal(out[i], seq[0, len(q):].numpy())
     assert eng.stats["prefill_batches"] == 1
     assert eng.stats["decode_steps"] == 5
 
