@@ -165,11 +165,17 @@ checkpoint to a temporary directory on the host. In order:
    ``scaled_dot_product_attention`` at both prompt lengths; the
    tensor-core kernel also at minicpm-2b's MHA shape (B 4, 36/36 heads,
    dh 64, S 1024 and 2048; 8e-2, 5e-3), timed beside the plain version,
-   SDPA and its bound (``dh64_mha``); the CUDA-core kernel at
+   SDPA and its bound (``dh64_mha``); the tensor-core kernel at
    recurrentgemma-2b's local attention (B 4, MQA 10/1, dh 256, window
-   2048; S 1024, 2048 and Sq 512 < Skv 2048) in bf16 (8e-2, 5e-3) and
-   float32 (2e-4, 1e-5), timed beside the plain version, SDPA with the
-   banded mask and its bound (``dh256_mqa_window``);
+   2048; S 1024, 2048, 4096 and Sq 512 < Skv 2048) in bf16 (8e-2, 5e-3),
+   the CUDA-core kernel forced on the same bf16 inputs (8e-2, 5e-3) and
+   in float32, its route (2e-4, 1e-5); at each Sq == Skv both kernels
+   timed beside the plain version, SDPA with the banded mask, SDPA with
+   ``is_causal`` (S <= window) and the bound (``dh256_mqa_window``). At
+   S 2048 (dh 128 and dh 256) the tensor-core kernel's relative error is
+   printed against the plain version (float32 P, as the Pallas kernel)
+   and against the same computation rounding P to bf16 (as the kernel
+   does for wgmma) (``p_rounding``);
 6. LM serve phase: qwen3-8b at full width (bf16, random weights from a
    seed) behind the Server (max batch 4): 4 requests with 1024-token and 4
    with 2048-token prompts, 16 new tokens each, greedy; all must complete,
@@ -190,8 +196,8 @@ checkpoint to a temporary directory on the host. In order:
    shorter than and equal to its 2048 window, decode wraps the ring
    buffer) and mamba2-1.3b (4 x 1024, 16 new), each with the same launch
    checks (one flash_attention per attention layer per prefill batch, on
-   the kernel ``_route`` picks: ``_tc`` at dh 64 and 128, the CUDA-core
-   one at recurrentgemma's dh 256, none for mamba2), its parameter count
+   the kernel ``_route`` picks: ``_tc`` in bf16 at dh 64, 128 and 256
+   (recurrentgemma's), none for mamba2), its parameter count
    (``num_params()`` plus the conv biases it leaves out) and parity (the
    MoE models against the reference run with the cuda run's routing
    replayed, the free-running routing agreement per layer printed). The
@@ -242,7 +248,8 @@ checkpoint to a temporary directory on the host. In order:
    restacked into 8 groups of 3 layers and 2 trailing layers;
    ``forward_scanned`` against ``forward`` and ``loss_fn_scanned``
    against ``loss_fn`` on ``SCAN_BATCH`` tokens within ``SCAN_ATOL``;
-   one CUDA-core flash_attention launch per attention layer per pass;
+   one tensor-core flash_attention launch per attention layer per pass
+   and none on the CUDA-core kernel;
 7. summary: a ``kernels`` JSON line (each row with its launches in the
    serve run, a train step, the stream run, the tuned serve run, the
    mesh serve run, the analyze phase's probes and the paper networks'
@@ -309,7 +316,8 @@ LM_LOGIT_REL = 5e-2
 # so the max-abs limit is set by the first rows and would pass a fault
 # that only touches late rows (such as O not rescaled when the running
 # max rises); the relative norm weighs every row by its size. bf16: one
-# rounding of the output and one of P (as the TPU kernel) each add
+# rounding of the output and one of P (the tensor-core kernel's, for
+# wgmma's bf16 A operand; the TPU kernel keeps P in float32) each add
 # ~2^-9/sqrt(3) relative. The card reads 2.1e-3 to 2.4e-3 at the shapes
 # below and 0.40 with O not rescaled by the running max (PERF.md); 5e-3
 # sits ~2x above the one and ~80x below the other. float32: 1.1e-6 read.
@@ -453,8 +461,9 @@ COMMAND_R_LAYERS = 8
 # 48 layers are 107.8 B, 216 GB): 2 requests of 1024 tokens, 5 new.
 # recurrentgemma-2b (2.89 B) with prompts shorter than (1024) and equal to
 # (2048) its 2048-token window, 16 new tokens, so that decode wraps the
-# ring buffer; its local attention is MQA 10/1 at dh 256 on the CUDA-core
-# flash_attention. mamba2-1.3b (1.34 B): 4 x 1024, 16 new; no attention.
+# ring buffer; its local attention is MQA 10/1 at dh 256 on the
+# tensor-core flash_attention. mamba2-1.3b (1.34 B): 4 x 1024, 16 new; no
+# attention.
 # Logit gates, set before the first run: each head gives logits of about
 # unit std (untied heads drawn at std d^-1/2; tied embeddings at std 0.02,
 # 0.02 * sqrt(2560) = 1.01 and 0.02 * sqrt(2048) = 0.91), as qwen3-8b's,
@@ -2849,7 +2858,9 @@ def attention_kernel_phase(dev, results: dict) -> None:
                               in rels.items() if dt == torch.bfloat16},
             rel_tol=ATTN_REL[torch.bfloat16],
             library_max_abs_err=(library.float() - plain.float())
-            .abs().max().item())
+            .abs().max().item(),
+            p_rounding=_p_rounding(f"dh 128 GQA at {b}x{s}", out, plain, q,
+                                   k, v))
     del q, k, v, out, plain, library
 
     # minicpm-2b's prefill shape: MHA (36/36 heads) at dh 64
@@ -2890,24 +2901,67 @@ def attention_kernel_phase(dev, results: dict) -> None:
                                                                       gen)
 
 
+def _p_rounding(label: str, out, plain, q, k, v, *,
+                window: int | None = None) -> dict:
+    """The kernel's relative-norm error against the plain version (float32
+    P, as the Pallas kernel) and against the same computation rounding P
+    to bf16 before P V (what wgmma's bf16 A operand makes the tensor-core
+    kernel do; the denominator sums the float32 P). Causal, every row
+    with a key. Printed; the gate is ``ATTN_REL`` against the first."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, dh)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * dh ** -0.5
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    keep = kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    logits.masked_fill_(~keep, float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    del logits
+    rounded = (torch.einsum("bhgqk,bhkd->bhgqd", p.bfloat16().float(),
+                            v.float())
+               / p.sum(-1, keepdim=True).clamp_min(1e-30))
+    rounded = rounded.reshape(b, hq, sq, dh).to(q.dtype)
+    del p
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).norm() / b.norm()).item()
+
+    row = {"rel_vs_f32_p": rel(out, plain), "rel_vs_bf16_p": rel(out, rounded),
+           "f32_p_vs_bf16_p": rel(plain, rounded)}
+    print(f"P rounding, {label}: kernel vs float32-P plain (the gate) "
+          f"{row['rel_vs_f32_p']:.3e}, vs bf16-P plain "
+          f"{row['rel_vs_bf16_p']:.3e}; the two plain versions "
+          f"{row['f32_p_vs_bf16_p']:.3e} apart (relative norm)")
+    return row
+
+
 def _attention_dh256(dev, gen) -> dict:
     """recurrentgemma-2b's local attention (MQA 10/1, dh 256, window 2048)
-    on the CUDA-core kernel, its route at that head dim: against the
-    plain version in bf16 and float32 at S 1024 and 2048 and at Sq < Skv;
-    at the two prompt lengths timed beside the plain version, SDPA with
-    the banded mask, and the bound (bf16 tensor-core peak)."""
+    on the tensor-core kernel, its bf16 route: against the plain version
+    at S 1024, 2048, 4096 (where the window is narrower than the causal
+    triangle) and Sq 512 < Skv 2048; the CUDA-core kernel forced through
+    ``_launch`` on the same bf16 inputs, and on them in float32 (its
+    route). At each length with Sq == Skv both kernels are timed beside
+    the plain version, SDPA with the banded mask, SDPA with ``is_causal``
+    (where S <= window, so the band is the causal mask) and the bound
+    (bf16 tensor-core peak)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import _route, flash_attention
+    from repro_torch.kernels.flash_attention import (_launch, _route,
+                                                     flash_attention)
 
     b, hq, hkv, dh = RG_ATTN
     w = RG_WINDOW
-    if _route(torch.bfloat16, dh) != "flash_attention":
-        raise AssertionError("bf16 at dh 256 is not routed to the CUDA-core "
-                             "kernel")
-    rows = {}
-    for sq, skv in ((1024, 1024), (2048, 2048), (512, 2048)):
+    if _route(torch.bfloat16, dh) != "flash_attention_tc":
+        raise AssertionError("bf16 at dh 256 is not routed to the "
+                             "tensor-core kernel")
+    rows, p_rounding = {}, None
+    for sq, skv in ((1024, 1024), (2048, 2048), (4096, 4096), (512, 2048)):
         q = torch.randn((b, hq, sq, dh), generator=gen, device=dev).to(
             torch.bfloat16)
         k, v = (torch.randn((b, hkv, skv, dh), generator=gen, device=dev)
@@ -2919,20 +2973,28 @@ def _attention_dh256(dev, gen) -> dict:
         def kernel(q=q, k=k, v=v):
             return flash_attention(q, k, v, causal=True, window=w)
 
+        def cuda_core(q=q, k=k, v=v):
+            return _launch("flash_attention", q, k, v, causal=True, window=w)
+
         def plain(q=q, k=k, v=v):
             return ref.flash_attention(q, k, v, causal=True, window=w)
 
-        label = (f"flash_attention {{}} (flash_attention) MQA dh 256 window "
-                 f"{w} q {tuple(q.shape)} kv {tuple(k.shape)}")
+        label = (f"flash_attention {{}} MQA dh 256 window {w} q "
+                 f"{tuple(q.shape)} kv {tuple(k.shape)}")
         out, exp = kernel(), plain()
-        err, rel = _attention_check(label.format("bfloat16"), out, exp,
-                                    torch.bfloat16)
+        err, rel = _attention_check(
+            label.format("bfloat16 (flash_attention_tc)"), out, exp,
+            torch.bfloat16)
+        err_cc, rel_cc = _attention_check(
+            label.format("bfloat16 (flash_attention, forced)"), cuda_core(),
+            exp, torch.bfloat16)
         f32 = tuple(t.float() for t in (q, k, v))
-        err32, rel32 = _attention_check(label.format("float32"),
-                                        kernel(*f32), plain(*f32),
-                                        torch.float32)
-        row = {"max_abs_err": err, "rel_err": rel, "f32_max_abs_err": err32,
-               "f32_rel_err": rel32}
+        err32, rel32 = _attention_check(
+            label.format("float32 (flash_attention)"), kernel(*f32),
+            plain(*f32), torch.float32)
+        row = {"max_abs_err": err, "rel_err": rel,
+               "cuda_core_max_abs_err": err_cc, "cuda_core_rel_err": rel_cc,
+               "f32_max_abs_err": err32, "f32_rel_err": rel32}
         if sq == skv:
             row.update(_measure(
                 out, exp, kernel, plain,
@@ -2942,19 +3004,30 @@ def _attention_dh256(dev, gen) -> dict:
                 _nbytes(q, k, v, out),
                 4.0 * dh * _attention_pairs(sq, skv, w) * b * hq,
                 PEAK_BF16_FLOPS))
+            row["cuda_core_ms"] = _ms(cuda_core)
+            row["sdpa_causal_ms"] = _ms(
+                lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)) \
+                if sq <= w else None
             row["f32_ms"] = _ms(lambda f32=f32: kernel(*f32))
             print(f"flash_attention MQA dh 256 window {w} at {b}x{sq}: "
                   + ", ".join(f"{key} {val:.4g}" for key, val in row.items()
-                              if key != "bound_by"))
+                              if val is not None and key != "bound_by"))
+        if (sq, skv) == (2048, 2048):
+            p_rounding = _p_rounding(f"dh 256 MQA window {w} at {b}x{sq}",
+                                     out, exp, q, k, v, window=w)
         rows[f"{sq}x{skv}"] = row
         del q, k, v, out, exp, f32, band
     return {"shape": {"b": b, "hq": hq, "hkv": hkv, "dh": dh,
                       "dtype": "bfloat16", "causal": True, "window": w},
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "launch_counter": "flash_attention",
-            "library": "scaled_dot_product_attention, banded boolean mask",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+            "launch_counter": "flash_attention_tc",
+            "cuda_core_source": "src/repro_torch/kernels/csrc/"
+                                "flash_attention.cu",
+            "library": "scaled_dot_product_attention, banded boolean mask "
+                       "(sdpa_causal_ms: is_causal, where S <= window)",
             "bound_peak": "989 TFLOP/s dense bf16 tensor cores, 3.35 TB/s",
-            "by_shape": rows}
+            "p_rounding": p_rounding, "by_shape": rows}
 
 
 def _leaves(tree) -> list:
@@ -4012,7 +4085,8 @@ def scanned_phase(card: str, device: str = "cuda") -> int:
     """Phase 6e: recurrentgemma-2b's scanned forward at full width and
     depth (period 3: 8 stacked groups and 2 trailing layers) against the
     unrolled forward, and the scanned loss against the unrolled one, on
-    ``SCAN_BATCH`` tokens. Returns the flash_attention launches."""
+    ``SCAN_BATCH`` tokens. Returns the flash_attention launches (all on
+    the tensor-core kernel, recurrentgemma's bf16 route at dh 256)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.models import lm
@@ -4060,7 +4134,7 @@ def scanned_phase(card: str, device: str = "cuda") -> int:
     _check_launches("scanned phase", cfg, launches, 4)
     del params, scanned
     _phase_end(f"scanned {SCAN_ARCH}", card, t_phase)
-    return launches["flash_attention"]
+    return launches["flash_attention_tc"]
 
 
 def check_backend_env() -> None:

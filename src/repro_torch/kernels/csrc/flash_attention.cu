@@ -3,9 +3,9 @@
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas kernel with a (bq x bk) logit tile and a (bq x dh) f32 VMEM
 // accumulator, walking Skv blockwise with a running max and denominator),
-// for float32 and for head dims other than 64 and 128 (up to 256);
-// bfloat16 at dh 64 or 128 goes to flash_attention_tc.cu
-// (flash_attention.py::_route).
+// for float32 at any head dim up to 256 and for bfloat16 at head dims
+// other than 64, 128 and 256; bfloat16 at those goes to
+// flash_attention_tc.cu (flash_attention.py::_route).
 //
 // Semantics, as the TPU kernel: q (B, Hq, Sq, dh), k and v (B, Hkv, Skv,
 // dh), Hq % Hkv == 0 and query head h reads kv head h / (Hq / Hkv) (GQA).
@@ -34,9 +34,9 @@
 //
 // The kernel is a template on the largest head dim it takes: MAX_DH 128
 // (dh <= 128: 32 accumulators a thread, two blocks an SM) and MAX_DH 256
-// (128 < dh <= 256, recurrentgemma's MQA at dh 256: 64 accumulators a
-// thread, one block an SM; shared memory (64 + 64) * 257 * 4 + 64 * 65 * 4
-// = 148 KB of the 227 KB a block may have).
+// (128 < dh <= 256, e.g. recurrentgemma's MQA at dh 256 in float32: 64
+// accumulators a thread, one block an SM; shared memory (64 + 64) * 257
+// * 4 + 64 * 65 * 4 = 148 KB of the 227 KB a block may have).
 #include <cfloat>
 
 #include <cuda_bf16.h>

@@ -5,13 +5,15 @@ The port of ``repro.kernels.flash_attention.flash_attention``, with two
 CUDA kernels chosen statically by :func:`_route`:
 
   ``flash_attention_tc``  ``csrc/flash_attention_tc.cu``: bfloat16 with
-                          head dim 64 or 128 on the tensor cores (wgmma,
-                          TMA, mbarriers); P is rounded to bfloat16 before
-                          P V, as in the Pallas kernel.
-  ``flash_attention``     ``csrc/flash_attention.cu``: everything else
-                          (float32, other head dims up to 256, e.g.
-                          recurrentgemma's 256), float32 FMA on the CUDA
-                          cores.
+                          head dim 64, 128 or 256 (recurrentgemma's) on
+                          the tensor cores (wgmma, TMA, mbarriers). P is
+                          rounded to bfloat16 before P V, because wgmma's
+                          A operand is bfloat16; the Pallas kernel and the
+                          plain version keep P in float32.
+  ``flash_attention``     ``csrc/flash_attention.cu``: float32 at any head
+                          dim up to 256, and bfloat16 at the head dims the
+                          tensor-core kernel does not take; float32 FMA on
+                          the CUDA cores.
 
 Each source's header says what bounds it. CPU tensors take the plain
 version in ``ref.py``; CUDA tensors launch a kernel or raise. Unlike the
@@ -24,15 +26,15 @@ import torch
 
 from repro_torch.kernels import _lib, ref
 
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 256                  # flash_attention.cu: any dh up to it
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype codes
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)       # flash_attention_tc.cu: bfloat16 only
 
 
 def _route(dtype: torch.dtype, dh: int) -> str:
     """The kernel (its launch counter's name) for inputs of ``dtype`` and
-    head dim ``dh``: the tensor-core kernel for bfloat16 at dh 64 or 128,
-    else the CUDA-core kernel."""
+    head dim ``dh``: the tensor-core kernel for bfloat16 at a dh in
+    ``TC_HEAD_DIMS``, else the CUDA-core kernel."""
     if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
         return "flash_attention_tc"
     return "flash_attention"

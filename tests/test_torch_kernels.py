@@ -263,16 +263,30 @@ def test_attention_op_dispatches_to_both_backends(backend):
     (torch.bfloat16, 16, "flash_attention"),
     (torch.float32, 64, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
-    (torch.bfloat16, 256, "flash_attention"),  # recurrentgemma's head dim
+    (torch.bfloat16, 256, "flash_attention_tc"),  # recurrentgemma's
+    (torch.bfloat16, 200, "flash_attention"),
+    (torch.bfloat16, 255, "flash_attention"),
     (torch.float32, 256, "flash_attention"),
     (torch.float16, 128, "flash_attention"),   # refused there, by dtype
 ])
 def test_flash_attention_route_is_static_by_dtype_and_head_dim(dtype, dh,
                                                                kernel):
-    """bfloat16 at dh 64 or 128 takes the tensor-core kernel, everything
-    else the CUDA-core kernel; both are launch counters of their own."""
+    """bfloat16 at dh 64, 128 or 256 takes the tensor-core kernel,
+    everything else the CUDA-core kernel; both are launch counters of
+    their own."""
     assert t_flash._route(dtype, dh) == kernel
     assert kernel in _lib.KERNELS
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 200),
+                                      (torch.float32, 256)])
+def test_tensor_core_kernel_refuses_what_it_does_not_take(dtype, dh):
+    """Forcing the tensor-core kernel onto a head dim or dtype outside its
+    route raises before any launch (meta tensors: nothing can run)."""
+    q, k, v = (torch.empty((1, 2, 8, dh), dtype=dtype, device="meta")
+               for _ in range(3))
+    with pytest.raises(ValueError, match="flash_attention_tc: takes"):
+        t_flash._launch("flash_attention_tc", q, k, v)
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
@@ -717,13 +731,18 @@ def test_cuda_seg_gather_reads_nothing_outside_a_bad_index(cuda):
     (2, 10, 1, 300, 300, 256, True, 128),  # MQA 10:1, dh 256, window
     (1, 4, 1, 100, 230, 256, True, None),  # dh 256, Sq < Skv, ragged
     (1, 4, 2, 70, 70, 200, False, None),   # 128 < dh < 256, not causal
+    (1, 2, 2, 64, 64, 256, True, 0),       # window 0, dh 256
+    (1, 4, 1, 100, 60, 256, True, None),   # Sq > Skv, dh 256
+    (1, 4, 2, 70, 300, 256, False, None),  # not causal, ragged, dh 256
+    (1, 4, 1, 1000, 1000, 256, True, 100),  # window 100 < S 1000, dh 256
+    (2, 8, 2, 1000, 1000, 256, True, None),  # GQA 4:1, S 1000, dh 256
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, sq, skv,
                                             dh, causal, window):
     r = _rng(26)
     q, k, v = (_t(a).to(cuda, dtype)
                for a in _qkv(r, b, hq, hkv, sq, skv, dh))
-    # bfloat16 at dh 64 and 128 runs on the tensor-core kernel
+    # bfloat16 at dh 64, 128 and 256 runs on the tensor-core kernel
     out = _counted(t_flash._route(dtype, dh), lambda: t_flash.flash_attention(
         q, k, v, causal=causal, window=window))
     plain = ref.flash_attention(q, k, v, causal=causal, window=window)
@@ -736,7 +755,7 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, sq, skv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_cuda_flash_attention_both_kernels_take_bf16(cuda, dh):
     """The CUDA-core kernel still takes bfloat16 at the tensor-core head
     dims (chip_smoke.py times the two side by side); both agree with the
