@@ -250,7 +250,27 @@ checkpoint to a temporary directory on the host. In order:
    against ``loss_fn`` on ``SCAN_BATCH`` tokens within ``SCAN_ATOL``;
    one tensor-core flash_attention launch per attention layer per pass
    and none on the CUDA-core kernel;
-7. summary: a ``kernels`` JSON line (each row with its launches in the
+7a. sharded train: phase 6c's qwen2.5-3b step (seed 0, its batch, remat,
+   donating) ``SHARDED_STEPS`` steps unsharded, then on DTensors through
+   ``make_train_step(rules=...)`` on a 1 x 1 NCCL ``DeviceMesh``
+   (``ShardingRules``, every placement ``Replicate``): losses, parameters
+   and moments bit for bit equal; 72 tensor-core attention launches a
+   step (through ``local_map``) and no CUDA-core one; both runs' step
+   ms, one sharded step profiled (idle share), the sharded run's peak
+   memory; the group is destroyed after;
+7b. memory estimate: ``launch/dryrun.py``'s tracker on exactly 7a's step
+   (a fake 1 x 1 mesh, meta tensors, the abstract attention backend):
+   its predicted peak beside 7a's measured one, within
+   ``ESTIMATE_RATIO`` either way;
+7c. production meshes: ``python -m repro_torch.launch.dryrun`` on the
+   six ``DRYRUN_CELLS`` (qwen3-8b train_4k, prefill_32k and decode_32k on
+   the single-pod (16, 16) mesh, command-r-plus-104b train_4k at all 64
+   layers on the (2, 16, 16) mesh, qwen2-moe-a2.7b train_4k and
+   mamba2-1.3b long_500k on the single pod), one subprocess a cell, all
+   started together: each record's summary (flops/dev, collective MiB,
+   mem/dev) and whether mem/dev fits one card's 80 GB; an error record
+   fails the run;
+8. summary: a ``kernels`` JSON line (each row with its launches in the
    serve run, a train step, the stream run, the tuned serve run, the
    mesh serve run, the analyze phase's probes and the paper networks'
    forwards and steps; flash_attention's also in the minicpm-2b,
@@ -258,7 +278,8 @@ checkpoint to a temporary directory on the host. In order:
    recurrentgemma-2b and mamba2-1.3b runs, and in phases 6a-6e:
    ``qwen2_vl_serve_launches``, ``musicgen_launches``,
    ``lm_train_launches`` (8 steps), ``lm_train_f32_launches``,
-   ``qwen2_vl_train_launches`` (3 steps) and ``scanned_launches``),
+   ``qwen2_vl_train_launches`` (3 steps), ``scanned_launches`` and
+   ``sharded_train_launches`` (7a, 3 steps)),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -551,6 +572,26 @@ VLM_TRAIN_GRID = (64, 14, 32, 0)
 SCAN_ARCH = RG_ARCH
 SCAN_BATCH = (4, 1024)
 SCAN_ATOL = 1e-3
+# Phase 7a: phase 6c's model, seed and batch trained SHARDED_STEPS steps
+# through make_train_step(rules=...) on a 1 x 1 NCCL DeviceMesh: every
+# placement Replicate, so every local op is the unsharded step's and the
+# results must be equal bit for bit.
+SHARDED_STEPS = 3
+# Phase 7b: the dry-run's memory tracker on 7a's step (a fake 1 x 1
+# mesh, meta tensors) against the card's measured peak: within a factor
+# of ESTIMATE_RATIO either way (eager live bytes; the caching allocator's
+# blocks are not counted on either side).
+ESTIMATE_RATIO = 2.0
+# Phase 7c: the production-mesh dry-run on six cells, each a subprocess
+# (all started together, DRYRUN_TIMEOUT_S each).
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", "single"),
+                ("qwen3-8b", "prefill_32k", "single"),
+                ("qwen3-8b", "decode_32k", "single"),
+                ("command-r-plus-104b", "train_4k", "multi"),
+                ("qwen2-moe-a2.7b", "train_4k", "single"),
+                ("mamba2-1.3b", "long_500k", "single"))
+DRYRUN_TIMEOUT_S = 400
+H100_BYTES = 80e9
 
 
 def _ms(fn, budget_ms: float = 300.0) -> float:
@@ -4137,6 +4178,214 @@ def scanned_phase(card: str, device: str = "cuda") -> int:
     return launches["flash_attention_tc"]
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _train_run(step_fn, params, opt_state, batch, steps: int) -> dict:
+    """``steps`` steps of ``step_fn`` on ``batch``: losses, synchronized
+    host ms and kernel launches per step."""
+    from repro_torch.kernels import _lib
+
+    rec: dict = {"loss": [], "ms": [], "launches": []}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        rec["loss"].append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append(_lib.launches())
+    rec["state"] = (params, opt_state)
+    return rec
+
+
+def sharded_train_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 7a: phase 6c's qwen2.5-3b train step (seed 0, its batch,
+    remat, donating) for ``SHARDED_STEPS`` steps unsharded, then through
+    ``make_train_step(rules=...)`` on DTensors of a 1 x 1 NCCL
+    ``DeviceMesh`` from ``init_train_state(rules=...)`` (the launcher's
+    sharded draw, the same seed): losses and the updated parameters and moments bit for
+    bit equal, 72 tensor-core attention launches a step and no
+    CUDA-core one; step ms of both (the difference is DTensor's host
+    cost), one sharded step profiled (idle share), the sharded run's
+    peak memory. Returns the sharded run's launches and its measured
+    peak (bytes) for phase 7b."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.shardings import ShardingRules
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_LM_BATCH
+    opt_cfg = AdamWConfig(lr=TRAIN_LM_LR, warmup_steps=1,
+                          total_steps=TRAIN_LM_STEPS)
+
+    def fresh(rules=None):
+        return init_train_state(cfg, opt_cfg,
+                                torch.Generator(device).manual_seed(0),
+                                rules=rules)
+
+    batch = _train_batch(cfg, b, s, device)
+    plain = _train_run(make_train_step(cfg, opt_cfg, remat=True,
+                                       donate=True),
+                       *fresh(), batch, SHARDED_STEPS)
+    p0, o0 = plain.pop("state")
+    want_params = [t.cpu() for t in tree_leaves(p0)]
+    want_moments = _digest((o0["m"], o0["v"]))
+    del p0, o0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(device, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = ShardingRules(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params, opt_state = fresh(rules)
+        step_fn = make_train_step(cfg, opt_cfg, rules, remat=True,
+                                  donate=True)
+        sharded = _train_run(step_fn, params, opt_state, batch,
+                             SHARDED_STEPS)
+        peak = torch.cuda.max_memory_allocated() - base
+        params, opt_state = sharded.pop("state")
+        placements = {str(p) for t in tree_leaves((params, opt_state["m"]))
+                      for p in t.placements}
+        got = [t.to_local() for t in tree_leaves(params)]
+        errs = [(got_t.float() - want_t.to(got_t.device).float()).abs()
+                .max().item() for got_t, want_t in zip(got, want_params)]
+        same_moments = _digest((_local_tree(opt_state["m"]),
+                                _local_tree(opt_state["v"]))) \
+            == want_moments
+        print(f"sharded train {cfg.name} ({card}): {SHARDED_STEPS} steps of "
+              f"{b} x {s} on a 1 x 1 {backend} DeviceMesh, placements "
+              f"{sorted(placements)}; losses {sharded['loss']} vs unsharded "
+              f"{plain['loss']}; parameters "
+              f"{'bit for bit' if max(errs) == 0 else 'NOT bit for bit'} "
+              f"(max abs err {max(errs):.3e} over {len(errs)} leaves); "
+              f"moments {'bit for bit' if same_moments else 'DIFFER'}")
+        if sharded["loss"] != plain["loss"] or max(errs) != 0 \
+                or not same_moments:
+            worst = sorted(enumerate(errs), key=lambda x: -x[1])[:5]
+            raise AssertionError(f"the sharded steps differ from the "
+                                 f"unsharded ones: worst leaves {worst}")
+        for i, got_l in enumerate(sharded["launches"]):
+            _check_launches(f"sharded train step {i}", cfg, got_l, 2)
+        print(f"sharded train step ms ({card}, synchronized host clock): "
+              f"unsharded {[round(x, 1) for x in plain['ms']]}, sharded "
+              f"{[round(x, 1) for x in sharded['ms']]}; median after the "
+              f"first {np.median(plain['ms'][1:]):.1f} vs "
+              f"{np.median(sharded['ms'][1:]):.1f} ms (DTensor's host cost "
+              f"{np.median(sharded['ms'][1:]) - np.median(plain['ms'][1:]):+.1f}"
+              f" ms); peak device memory of the sharded run "
+              f"{peak / 1e9:.2f} GB")
+        _profile(lambda: step_fn(params, opt_state, batch),
+                 f"sharded train step {b}x{s}", card)
+        del params, opt_state, got
+    finally:
+        dist.destroy_process_group()
+    _phase_end(f"sharded train {TRAIN_ARCH}", card, t_phase)
+    return {"launches": sum(x["flash_attention_tc"]
+                            for x in sharded["launches"]),
+            "peak": peak}
+
+
+def _local_tree(tree):
+    """The local tensors of a tree of DTensors."""
+    from repro_torch.training.optimizer import tree_map
+
+    return tree_map(lambda t: t.to_local(), tree)
+
+
+def estimate_phase(card: str, measured_peak: float) -> None:
+    """Phase 7b: the dry-run's tracker on phase 7a's step (qwen2.5-3b,
+    ``TRAIN_LM_BATCH``, remat, donating) on a fake 1 x 1 mesh: its
+    predicted peak against 7a's measured one, within ``ESTIMATE_RATIO``
+    either way."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_LM_BATCH
+    rec = trace_train_step(cfg, (1, 1), b, s)
+    predicted = rec["memory"]["peak_bytes"]
+    ratio = predicted / measured_peak
+    print(f"memory estimate ({card}): the dry-run predicts a peak of "
+          f"{predicted / 1e9:.2f} GB for 7a's step (arguments "
+          f"{rec['memory']['argument_bytes'] / 1e9:.2f} GB), the card "
+          f"measured {measured_peak / 1e9:.2f} GB: ratio {ratio:.3f}; "
+          f"flops/dev {rec['flops_per_device']:.4e}; traced in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not 1 / ESTIMATE_RATIO <= ratio <= ESTIMATE_RATIO:
+        raise AssertionError(f"the estimate is off by more than "
+                             f"{ESTIMATE_RATIO}x: the tracker misses a "
+                             f"class of tensors")
+
+
+def dryrun_phase(card: str) -> None:
+    """Phase 7c: ``python -m repro_torch.launch.dryrun`` on
+    ``DRYRUN_CELLS``, one subprocess a cell, all started together; each
+    record's summary and whether its per-device peak fits one card. Any
+    error record, non-zero exit or timeout fails the phase."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as out:
+        procs = [(cell, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)) for cell in DRYRUN_CELLS]
+        failed = []
+        for cell, proc in procs:
+            try:
+                log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                log, _ = proc.communicate()
+                failed.append((cell, "timeout"))
+                continue
+            path = pathlib.Path(out) / f"{cell[0]}__{cell[1]}__{cell[2]}.json"
+            if proc.returncode != 0 or not path.exists():
+                failed.append((cell, log[-2000:]))
+                continue
+            rec = json.loads(path.read_text())
+            if rec["status"] != "ok":
+                failed.append((cell, rec.get("error")))
+                continue
+            from repro_torch.launch.dryrun import mem_per_device, summary
+
+            mem = mem_per_device(rec)
+            coll = rec["costs"]["collectives"]
+            top_bytes, top = rec["proof"]["memory"]["peak_top"][0]
+            print(f"dryrun {summary(rec)} fits one H100 ({H100_BYTES / 1e9:.0f}"
+                  f" GB): {'yes' if mem <= H100_BYTES else 'NO'}; "
+                  f"collective counts {coll['counts']}; bytes accessed/dev "
+                  f"{rec['costs']['bytes_accessed_per_device']:.3e}; "
+                  f"{rec['devices']} devices; largest at the peak "
+                  f"{top_bytes / 2**30:.3f} GiB {top}")
+    for p in procs:
+        if p[1].poll() is None:
+            p[1].kill()
+    print(f"dryrun phase wall time ({card}): {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"dry-run cells failed: {failed}")
+
+
 def check_backend_env() -> None:
     """Fail if a ``REPRO_KERNEL_BACKEND*`` variable is set: it would route
     ops of the whole run to other backends than the kernels."""
@@ -4206,6 +4455,10 @@ def main() -> None:
     flash.update(lm_train_phase(card))
     flash["qwen2_vl_train_launches"] = vlm_train_phase(card)
     flash["scanned_launches"] = scanned_phase(card)
+    sharded = sharded_train_phase(card)
+    flash["sharded_train_launches"] = sharded["launches"]
+    estimate_phase(card, sharded["peak"])
+    dryrun_phase(card)
     for name, row in kernels.items():       # every row, flash_attention's too
         row["train_step_launches"] = train_launches.get(name, 0)
         row["stream_launches"] = stream_launches.get(name, 0)

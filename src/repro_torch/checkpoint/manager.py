@@ -26,18 +26,22 @@ import threading
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.runtime.executable import _leaves
 
 
 def _flatten(tree, copy: bool = False) -> dict:
     """Flat host arrays of ``tree``'s leaves: a device tensor's are a
-    fresh host copy; a CPU tensor's share its memory unless ``copy``."""
+    fresh host copy; a CPU tensor's share its memory unless ``copy``. A
+    DTensor is gathered whole first (a collective every rank runs)."""
     out = {}
     for k, v in _leaves(tree).items():
         if not isinstance(v, torch.Tensor):
             out[k] = np.array(v) if copy else np.asarray(v)
             continue
+        if isinstance(v, DTensor):
+            v, copy = v.full_tensor(), False   # a fresh tensor already
         v = v.detach()
         if v.dtype == torch.bfloat16:
             v = v.view(torch.int16)
@@ -59,7 +63,20 @@ def _unflatten(template, arrays: dict, prefix: str = ""):
     t = torch.from_numpy(np.asarray(arrays[prefix[:-1]]))
     if template.dtype == torch.bfloat16 and t.dtype == torch.int16:
         t = t.view(torch.bfloat16)
+    if isinstance(template, DTensor):   # this rank's shards of the leaf
+        return distribute_tensor(
+            t.to(device=template.to_local().device, dtype=template.dtype),
+            template.device_mesh, template.placements, src_data_rank=None)
     return t.to(device=template.device, dtype=template.dtype)
+
+
+def _writer(tree) -> bool:
+    """Whether this process writes ``tree``'s checkpoint: always, except
+    for a tree of DTensors on ranks other than 0 (every rank gathers the
+    leaves; rank 0 writes them)."""
+    if not any(isinstance(v, DTensor) for v in _leaves(tree).values()):
+        return True
+    return torch.distributed.get_rank() == 0
 
 
 @dataclasses.dataclass
@@ -79,11 +96,15 @@ class CheckpointManager:
             self.wait()
             # copies: a CPU tensor's numpy view would see later updates
             host = _flatten(tree, copy=True)
+            if not _writer(tree):
+                return
             self._thread = threading.Thread(
                 target=self._save_sync, args=(host, step), daemon=True)
             self._thread.start()
         else:
-            self._save_sync(_flatten(tree), step)
+            host = _flatten(tree)
+            if _writer(tree):
+                self._save_sync(host, step)
 
     def _save_sync(self, arrays: dict, step: int) -> None:
         final = self.dir / f"step_{step:08d}"

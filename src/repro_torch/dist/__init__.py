@@ -10,8 +10,9 @@
     mesh=...)``: a ``ShardedExecutable`` (data axis = dst row groups
     placed by ``graphs/partition.py``, model axis = feature blocks).
 
-The reference's LM sharding rules (``dist/shardings.py``) belong to the
-LM stack (ROADMAP.md Queue 1 item 7).
+  * :mod:`repro_torch.dist.shardings` — the LM stack's logical-axis
+    sharding rules (``ShardingRules``: specs, DTensor placements,
+    ``constrain``) on a ``torch.distributed`` ``DeviceMesh``.
 """
 from repro_torch.dist.comm import CollectiveStats, CommLog, wire_bytes
 from repro_torch.dist.mesh import LocalMesh, ProcessGroupMesh

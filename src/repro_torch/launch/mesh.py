@@ -1,24 +1,54 @@
-"""Mesh construction for the launchers and ``runtime.compile(mesh=...)``.
+"""Mesh construction for the launchers and ``runtime.compile(mesh=...)``:
+the port of ``repro.launch.mesh``. Functions, not module-level
+constants, so importing this module touches no device and no process
+group.
 
-The port of ``repro.launch.mesh``'s elastic half. A function, not a
-module-level constant, so importing this module touches no device.
+:func:`make_production_mesh` builds the reference's production meshes as
+a ``torch.distributed`` ``DeviceMesh``: a single pod of (16, 16) devices
+``("data", "model")``, or two pods, (2, 16, 16) ``("pod", "data",
+"model")``, with the leading ``pod`` axis the slowest link. The process
+group must exist and hold exactly that many ranks (``torchrun`` on the
+cards, or the dry-run's fake group). The shapes are the reference's, so
+``dist.shardings.ShardingRules`` gives the reference's specs on them.
 
-``make_mesh_for`` builds a :class:`~repro_torch.dist.mesh.LocalMesh`:
-every rank of the (data, model) mesh in this process, on one device
-(``cuda`` unless the caller names another). On one card its ranks run in
-turn, so its times say nothing about scaling; its counted collective
-bytes are what a mesh of that many devices sends. A mesh of one rank
-per process is :class:`~repro_torch.dist.mesh.ProcessGroupMesh`, which
-the caller builds after ``torch.distributed.init_process_group``.
-
-The reference's ``make_production_mesh`` (TPU pod meshes for the LM
-stack) is ROADMAP.md Queue 1 item 7.9.
+``make_mesh_for`` builds the GNN runtime's
+:class:`~repro_torch.dist.mesh.LocalMesh`: every rank of the (data,
+model) mesh in this process, on one device (``cuda`` unless the caller
+names another). On one card its ranks run in turn, so its times say
+nothing about scaling; its counted collective bytes are what a mesh of
+that many devices sends. A mesh of one rank per process is
+:class:`~repro_torch.dist.mesh.ProcessGroupMesh`, which the caller builds
+after ``torch.distributed.init_process_group``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.dist.mesh import LocalMesh
+
+SINGLE_POD = ((16, 16), ("data", "model"))
+MULTI_POD = ((2, 16, 16), ("pod", "data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production ``DeviceMesh`` over the default process group of
+    256 (or, ``multi_pod``, 512) ranks, on ``device_type`` devices."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = MULTI_POD if multi_pod else SINGLE_POD
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != need:
+        raise SystemExit(
+            f"the {'multi' if multi_pod else 'single'}-pod mesh {shape} "
+            f"needs {need} devices but the process group has {have}; run "
+            f"it under torchrun with {need} ranks (e.g. --nnodes "
+            f"{need // 8} --nproc-per-node 8 on 8-card hosts)")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_mesh_for(devices: int, *, model_parallel: int = 16,

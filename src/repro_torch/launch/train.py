@@ -13,9 +13,17 @@ rerun the same command, and it continues from the latest checkpoint.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --smoke --arch qwen2-vl-2b --steps 3 --compress-grads
 
-``--mesh host`` (the default) is the one device. ``single`` and ``multi``
-(the reference's production meshes with sharded train state) are
-ROADMAP.md Queue 1 item 7.9 and raise ``NotImplementedError``.
+``--mesh host`` (the default) is the one device. ``single`` and
+``multi`` build the reference's production mesh (256 or 512 ranks,
+``launch/mesh.py::make_production_mesh``) over the process group that
+``torchrun`` describes, lay the train state out by
+``dist/shardings.py``'s rules (DTensors: each rank draws every leaf from
+the seed, keeps its shards and frees the rest, so no rank holds more
+than its shards and one whole leaf) and run the same loop; rank 0
+writes the checkpoints. One process a card, e.g. on 32 hosts of 8::
+
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
+        --arch qwen3-8b --mesh single --steps 100
 """
 from __future__ import annotations
 
@@ -59,12 +67,22 @@ def main(argv=None) -> None:
     from repro_torch.training.train_loop import (TrainLoop, init_train_state,
                                                  make_train_step)
 
+    rules = None
     if args.mesh in ("single", "multi"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production mesh and sharded train "
-            f"state are not ported yet (ROADMAP.md, Queue 1 item 7.9: "
-            f"make_production_mesh)")
+        import torch.distributed as dist
+
+        from repro_torch.dist.shardings import ShardingRules
+        from repro_torch.launch.mesh import make_production_mesh
+
+        if args.device in (None, "cuda"):   # torchrun's card for this rank
+            args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     device = resolve_device(args.device)
+    if args.mesh in ("single", "multi"):
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(        # from torchrun's environment
+                "nccl" if device.type == "cuda" else "gloo")
+        rules = ShardingRules(make_production_mesh(
+            multi_pod=args.mesh == "multi", device_type=device.type))
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     opt_cfg = AdamWConfig(lr=args.lr, schedule=args.schedule,
                           warmup_steps=max(5, args.steps // 20),
@@ -72,7 +90,7 @@ def main(argv=None) -> None:
 
     params, opt_state = init_train_state(
         cfg, opt_cfg, torch.Generator(device).manual_seed(0),
-        compress_grads=args.compress_grads)
+        compress_grads=args.compress_grads, rules=rules)
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
           f"mesh={args.mesh} steps={args.steps} device={device}")
@@ -97,7 +115,7 @@ def main(argv=None) -> None:
             batch["tokens"] = batch["labels"]
         return batch
 
-    step_fn = make_train_step(cfg, opt_cfg, remat=not args.smoke,
+    step_fn = make_train_step(cfg, opt_cfg, rules, remat=not args.smoke,
                               compress_grads=args.compress_grads,
                               donate=True)
     mgr = CheckpointManager(args.ckpt_dir, keep=3, async_save=True)

@@ -149,6 +149,17 @@ class ModelConfig:
         total += d  # final norm
         return total
 
+    def active_params(self) -> int:
+        """Parameters touched per token (MoE: only the routed top-k)."""
+        if self.moe is None:
+            return self.num_params()
+        m = self.moe
+        n_moe_layers = sum(1 for i in range(self.n_layers)
+                           if self.is_moe_layer(i))
+        inactive = (m.num_experts - m.top_k) * 3 * self.d_model \
+            * m.d_ff_expert
+        return self.num_params() - n_moe_layers * inactive
+
     def _layer_has_mlp(self, i: int) -> bool:
         if self.mlp_kind == "none":
             return False

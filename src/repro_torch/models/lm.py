@@ -13,6 +13,8 @@ dtypes — so they cross between the packages through
 
 Entry points:
     init_params(cfg, gen)                       # on gen.device
+    abstract_params / param_axes / cache_axes   # meta tensors, Axes trees
+    scanned_abstract_params(cfg)                # the stacked variant's
     forward(params, cfg, batch)                 # -> logits (B,S,V) [or (B,S,C,V)]
     loss_fn(params, cfg, batch)                 # next-token CE
     forward_scanned / loss_fn_scanned           # over stacked layers
@@ -31,10 +33,15 @@ registry (``backend=``: ``cuda`` by default, or ``reference``); on
 reference's. The dense projections, MLP, MoE, recurrences, norms, RoPE,
 head and decode attention are plain PyTorch, as the reference leaves
 them to XLA.
+
+Every entry point takes ``constrain(x, axes)``, called on the activations
+at the reference's places, with its logical axes and in its order; the
+default returns ``x``. Sharded runs pass ``ShardingRules.constrain``
+(``dist/shardings.py``), which lays a DTensor out by the rules.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -44,13 +51,21 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.nn.attention import (attn_apply, attn_cache_struct,
                                       attn_decode, attn_prefill_cache,
                                       attn_struct)
-from repro_torch.nn.layers import (dense, init_leaf, mlp_apply, mlp_struct,
-                                   rms_norm)
+from repro_torch.nn.layers import (Axes, abstract_leaf, axes_leaf, dense,
+                                   init_leaf, mlp_apply, mlp_struct, rms_norm,
+                                   shardable)
 from repro_torch.nn.moe import moe_apply, moe_struct
 from repro_torch.nn.rglru import (rglru_apply, rglru_cache_struct,
                                   rglru_decode, rglru_struct)
 from repro_torch.nn.ssd import (ssd_apply, ssd_cache_struct, ssd_decode,
                                 ssd_prefill_cache, ssd_struct)
+
+Constrain = Callable[[torch.Tensor, tuple], torch.Tensor]
+ACT = ("act_batch", "act_seq", "act_embed")   # the residual stream's axes
+
+
+def _noop_constrain(x, axes):
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +146,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return param_struct(cfg, init_leaf(gen, cfg.pdtype))
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors (shapes and dtypes only)."""
+    return param_struct(cfg, abstract_leaf(cfg.pdtype))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The parameter tree's logical axes (:class:`Axes` leaves)."""
+    return param_struct(cfg, axes_leaf())
+
+
 def _to_tensor(leaf, device) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
         return leaf.to(device)
@@ -164,11 +189,17 @@ def _embed_in(params, cfg: ModelConfig, batch) -> torch.Tensor:
         return dense(batch["embeddings"].to(cfg.cdtype), params["embed_proj"])
     toks = batch["tokens"]
     if cfg.n_codebooks == 1:
-        x = params["embed"][toks]
+        x = _lookup(params["embed"], toks)
     else:   # MusicGen: the codebooks' embeddings summed in order, toks (B,S,C)
-        x = sum(params["embed"][c][toks[..., c]]
+        x = sum(_lookup(params["embed"][c], toks[..., c])
                 for c in range(cfg.n_codebooks))
     return x.to(cfg.cdtype) * cfg.emb_scale
+
+
+@shardable
+def _lookup(table: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """``table[toks]``: rows of a (V, D) embedding."""
+    return table[toks]
 
 
 def _logits_out(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -176,13 +207,13 @@ def _logits_out(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings and cfg.input_mode == "tokens":
         emb = params["embed"].to(x.dtype)
         if cfg.n_codebooks == 1:
-            logits = torch.matmul(x, emb.T)
+            logits = dense(x, emb.T)
         else:
             logits = torch.einsum("bsd,cvd->bscv", x, emb)
     else:
         head = params["lm_head"].to(x.dtype)
         if cfg.n_codebooks == 1:
-            logits = torch.matmul(x, head)
+            logits = dense(x, head)
         else:
             logits = torch.einsum("bsd,cdv->bscv", x, head)
     return logits * cfg.logit_scale
@@ -204,19 +235,29 @@ def _window(cfg: ModelConfig, kind: str) -> int | None:
     return cfg.local_window if kind == "local_attn" else None
 
 
-def _ffn_residual(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_residual(lp, x: torch.Tensor, cfg: ModelConfig,
+                  constrain: Constrain, each: bool = False) -> torch.Tensor:
+    """``x`` plus the layer's FFN (``x`` itself without one). ``each``
+    constrains the FFN's output and the sum, as the reference's forward
+    does; its prefill and decode constrain once after the layer."""
     if "ln2" not in lp:
         return x
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    ffn = moe_apply(lp["moe"], h, cfg) if "moe" in lp \
+    ffn = moe_apply(lp["moe"], h, cfg, constrain) if "moe" in lp \
         else mlp_apply(lp["mlp"], h, cfg.mlp_kind)
-    return x + cfg.residual_scale * ffn
+    if each:
+        ffn = constrain(ffn, ACT)
+    x = x + cfg.residual_scale * ffn
+    return constrain(x, ACT) if each else x
 
 
 def _layer(lp, x: torch.Tensor, cfg: ModelConfig, kind: str, positions,
-           backend, max_len: int | None = None):
+           backend, max_len: int | None = None,
+           constrain: Constrain = _noop_constrain):
     """One layer over a whole sequence: (its output (B,S,D), its decode
-    cache, or None when ``max_len`` is None)."""
+    cache, or None when ``max_len`` is None). Without ``max_len`` it
+    constrains as the reference's forward layer does (the block's output
+    before the residual add, then each sum), with it as its prefill."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     cache = None
     if kind in ("attn", "local_attn"):
@@ -235,36 +276,46 @@ def _layer(lp, x: torch.Tensor, cfg: ModelConfig, kind: str, positions,
         mix = ssd_apply(lp["mixer"], h, cfg)
     else:
         mix, cache = ssd_prefill_cache(lp["mixer"], h, cfg)
-    return _ffn_residual(lp, x + cfg.residual_scale * mix, cfg), cache
+    if max_len is None:
+        mix = constrain(mix, ACT)
+        x = constrain(x + cfg.residual_scale * mix, ACT)
+        return _ffn_residual(lp, x, cfg, constrain, each=True), None
+    x = _ffn_residual(lp, x + cfg.residual_scale * mix, cfg, constrain)
+    return constrain(x, ACT), cache
 
 
 def _layer_apply(lp, x: torch.Tensor, cfg: ModelConfig, i: int, positions,
-                 backend) -> torch.Tensor:
+                 backend, constrain: Constrain = _noop_constrain
+                 ) -> torch.Tensor:
     """Layer ``i`` (its kind ``cfg.pattern[i]``) over a whole sequence."""
-    return _layer(lp, x, cfg, cfg.pattern[i], positions, backend)[0]
+    return _layer(lp, x, cfg, cfg.pattern[i], positions, backend,
+                  constrain=constrain)[0]
 
 
-def _inputs(params, cfg: ModelConfig, batch):
+def _inputs(params, cfg: ModelConfig, batch, constrain: Constrain):
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
+    x = constrain(x, ACT)
     return x, _positions(cfg, batch, b, s, x.device)
 
 
-def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
+def forward(params, cfg: ModelConfig, batch, *,
+            constrain: Constrain = _noop_constrain, remat: bool = False,
             backend=None) -> torch.Tensor:
     """Full-sequence forward -> logits (B,S,V) [or (B,S,C,V)]. ``remat``
     recomputes each layer's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping them."""
-    x, positions = _inputs(params, cfg, batch)
+    x, positions = _inputs(params, cfg, batch, constrain)
     for i, lp in enumerate(params["layers"]):
         if remat:
             x = checkpoint(_layer_apply, lp, x, cfg, i, positions, backend,
-                           use_reentrant=False)
+                           constrain, use_reentrant=False)
         else:
-            x = _layer_apply(lp, x, cfg, i, positions, backend)
+            x = _layer_apply(lp, x, cfg, i, positions, backend, constrain)
     return _logits_out(params, cfg, x)
 
 
+@shardable
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The mean next-token cross entropy over ``labels >= 0`` (−100 is
     ignored), in float32: logits (..., V), labels (...)."""
@@ -276,10 +327,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
+def loss_fn(params, cfg: ModelConfig, batch, *,
+            constrain: Constrain = _noop_constrain, remat: bool = False,
             backend=None) -> torch.Tensor:
     """Next-token cross entropy. labels: (B,S) or (B,S,C); −100 ignored."""
-    logits = forward(params, cfg, batch, remat=remat, backend=backend)
+    logits = forward(params, cfg, batch, constrain=constrain, remat=remat,
+                     backend=backend)
     return cross_entropy(logits, batch["labels"])
 
 
@@ -296,15 +349,54 @@ def pattern_period(cfg: ModelConfig) -> int:
     return len(pat)
 
 
+def _map(fn, tree):
+    """``fn`` over the leaves of a layer tree (nested dicts)."""
+    if isinstance(tree, dict):
+        return {key: _map(fn, v) for key, v in tree.items()}
+    return fn(tree)
+
+
 def _slice(tree, k: int):
     """Group ``k`` of a stacked layer tree: every leaf's slice [k]."""
-    if isinstance(tree, dict):
-        return {key: _slice(v, k) for key, v in tree.items()}
-    return tree[k]
+    return _map(lambda t: t[k], tree)
 
 
-def forward_scanned(params, cfg: ModelConfig, batch, *, remat: bool = False,
-                    backend=None) -> torch.Tensor:
+def stacked_abstract_layers(cfg: ModelConfig):
+    """Returns (stacked_params, stacked_axes, trail_params, trail_axes)
+    as meta tensors and :class:`Axes`: the layers grouped by their
+    position j < p in the block pattern (p = :func:`pattern_period`),
+    each group's nf = n_layers // p layers stacked on a leading
+    ``layers`` axis, and the n_layers % p trailing layers unstacked."""
+    p = pattern_period(cfg)
+    nf = cfg.n_layers // p
+    a_leaf, x_leaf = abstract_leaf(cfg.pdtype), axes_leaf()
+    abs_layers = [_layer_struct(a_leaf, i, cfg) for i in range(cfg.n_layers)]
+    ax_layers = [_layer_struct(x_leaf, i, cfg) for i in range(cfg.n_layers)]
+    stacked = tuple(_map(lambda t: torch.empty((nf,) + tuple(t.shape),
+                                               dtype=t.dtype, device="meta"),
+                         abs_layers[j]) for j in range(p))
+    stacked_ax = tuple(_map(lambda ax: Axes(("layers",) + ax.names),
+                            ax_layers[j]) for j in range(p))
+    return stacked, stacked_ax, abs_layers[nf * p:], ax_layers[nf * p:]
+
+
+def scanned_abstract_params(cfg: ModelConfig):
+    """(abstract params, axes) of the scanned variant: the embedding and
+    head leaves of :func:`param_struct`, ``"stack"`` and ``"trail"``
+    (see :func:`forward_scanned`)."""
+    full = abstract_params(cfg)
+    full_ax = param_axes(cfg)
+    stack, stack_ax, trail, trail_ax = stacked_abstract_layers(cfg)
+    params = {k: v for k, v in full.items() if k != "layers"}
+    axes = {k: v for k, v in full_ax.items() if k != "layers"}
+    params["stack"], params["trail"] = stack, list(trail)
+    axes["stack"], axes["trail"] = stack_ax, list(trail_ax)
+    return params, axes
+
+
+def forward_scanned(params, cfg: ModelConfig, batch, *,
+                    constrain: Constrain = _noop_constrain,
+                    remat: bool = False, backend=None) -> torch.Tensor:
     """Forward over stacked layers. ``params``: the embedding and head
     leaves of :func:`param_struct`, ``"stack"`` — a tuple of p layer
     trees (p = :func:`pattern_period`) whose leaves carry a leading axis
@@ -314,12 +406,12 @@ def forward_scanned(params, cfg: ModelConfig, batch, *, remat: bool = False,
     group's activations in the backward, as the reference's
     ``jax.checkpoint`` of its scan body."""
     p = pattern_period(cfg)
-    x, positions = _inputs(params, cfg, batch)
+    x, positions = _inputs(params, cfg, batch, constrain)
 
     def group(x, k):
         for j in range(p):
             x = _layer_apply(_slice(params["stack"][j], k), x, cfg, j,
-                             positions, backend)
+                             positions, backend, constrain)
         return x
 
     nf = cfg.n_layers // p
@@ -327,13 +419,16 @@ def forward_scanned(params, cfg: ModelConfig, batch, *, remat: bool = False,
         x = checkpoint(group, x, k, use_reentrant=False) if remat \
             else group(x, k)
     for t, lp in enumerate(params["trail"]):
-        x = _layer_apply(lp, x, cfg, nf * p + t, positions, backend)
+        x = _layer_apply(lp, x, cfg, nf * p + t, positions, backend,
+                         constrain)
     return _logits_out(params, cfg, x)
 
 
-def loss_fn_scanned(params, cfg: ModelConfig, batch, *, remat: bool = False,
-                    backend=None) -> torch.Tensor:
-    logits = forward_scanned(params, cfg, batch, remat=remat, backend=backend)
+def loss_fn_scanned(params, cfg: ModelConfig, batch, *,
+                    constrain: Constrain = _noop_constrain,
+                    remat: bool = False, backend=None) -> torch.Tensor:
+    logits = forward_scanned(params, cfg, batch, constrain=constrain,
+                             remat=remat, backend=backend)
     return cross_entropy(logits, batch["labels"])
 
 
@@ -342,7 +437,11 @@ def loss_fn_scanned(params, cfg: ModelConfig, batch, *, remat: bool = False,
 # ---------------------------------------------------------------------------
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
-                 device: torch.device | str | None = None) -> list:
+                 device: torch.device | str | None = None, *,
+                 abstract: bool = False) -> list:
+    """Zero decode caches on ``device``; meta tensors with ``abstract``."""
+    if abstract:
+        device = "meta"
     caches = []
     for kind in cfg.pattern:
         if kind in ("attn", "local_attn"):
@@ -355,24 +454,44 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
-def prefill(params, cfg: ModelConfig, batch, max_len: int, *, backend=None):
+def cache_axes(cfg: ModelConfig) -> list:
+    """The logical axes of :func:`cache_struct`'s tree."""
+    axes = []
+    for kind in cfg.pattern:
+        if kind in ("attn", "local_attn"):
+            a = Axes(("act_batch", "kv_heads_n", "cache_seq", "head_dim"))
+            axes.append({"k": a, "v": a})
+        elif kind == "rglru":
+            axes.append({"h": Axes(("act_batch", "lru")),
+                         "conv": Axes(("act_batch", "conv_w", "lru"))})
+        else:
+            axes.append({"state": Axes(("act_batch", "ssm_heads", "ssm_p",
+                                        "ssm_state")),
+                         "conv": Axes(("act_batch", "conv_w", "ssm_conv"))})
+    return axes
+
+
+def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
+            constrain: Constrain = _noop_constrain, backend=None):
     """Run the prompt, return (last-position logits (B,1,V) [or
     (B,1,C,V)], caches)."""
-    x, positions = _inputs(params, cfg, batch)
+    x, positions = _inputs(params, cfg, batch, constrain)
     caches = []
     for kind, lp in zip(cfg.pattern, params["layers"]):
-        x, cache = _layer(lp, x, cfg, kind, positions, backend, max_len)
+        x, cache = _layer(lp, x, cfg, kind, positions, backend, max_len,
+                          constrain)
         caches.append(cache)
     return _logits_out(params, cfg, x[:, -1:]), caches
 
 
-def decode_step(params, cfg: ModelConfig, batch, caches):
+def decode_step(params, cfg: ModelConfig, batch, caches, *,
+                constrain: Constrain = _noop_constrain):
     """One decode step. batch: {"tokens": (B,1) or (B,1,C) |
     "embeddings": (B,1,D), "pos": int}. M-RoPE rotates the token by
     ``pos`` in all three rows, as the reference does. Updates the caches
     in place; returns (logits (B,1,V) [or (B,1,C,V)], caches)."""
     pos = int(batch["pos"])
-    x = _embed_in(params, cfg, batch)
+    x = constrain(_embed_in(params, cfg, batch), ACT)
     for kind, lp, cache in zip(cfg.pattern, params["layers"], caches):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if kind in ("attn", "local_attn"):
@@ -382,5 +501,6 @@ def decode_step(params, cfg: ModelConfig, batch, caches):
             mix, _ = rglru_decode(lp["mixer"], h, cfg, cache)
         else:
             mix, _ = ssd_decode(lp["mixer"], h, cfg, cache)
-        x = _ffn_residual(lp, x + cfg.residual_scale * mix, cfg)
+        x = constrain(_ffn_residual(lp, x + cfg.residual_scale * mix, cfg,
+                                    constrain), ACT)
     return _logits_out(params, cfg, x), caches

@@ -7,6 +7,10 @@ with the causal (and optional window) mask of the reference's
 ``_sdpa_chunked`` / ``_sdpa_banded``. Single-token decode stays plain
 PyTorch over the cache, as in the reference.
 
+On DTensors (a sharded run) the registry's op, and decode's attention
+over the cache, run on each rank's shard: :func:`_attend`'s version in
+``dist/sharded_ops.py``.
+
 Decode keeps a ring buffer of W entries for local layers (pos % W
 indexing) and a full max_len buffer for global layers. The port updates
 the buffers in place (the reference donates and returns them);
@@ -14,11 +18,13 @@ the buffers in place (the reference donates and returns them);
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import registry
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.layers import Leaf, dense, rms_norm
+from repro_torch.nn.layers import Leaf, dense, rms_norm, shardable
 from repro_torch.nn.rope import apply_mrope, apply_rope
 
 NEG = -0.7 * torch.finfo(torch.float32).max
@@ -43,10 +49,24 @@ def attn_struct(leaf: Leaf, prefix: str, cfg: ModelConfig) -> dict:
     return p
 
 
+@shardable
 def _heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     """(B, S, n * dh) -> contiguous (B, n, S, dh)."""
     b, s, _ = x.shape
     return x.reshape(b, s, n, dh).transpose(1, 2).contiguous()
+
+
+@shardable
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """(B, n, S, dh) -> (B, S, n * dh)."""
+    b, n, s, dh = out.shape
+    return out.transpose(1, 2).reshape(b, s, n * dh)
+
+
+@shardable
+def _attend(op, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw):
+    """``op(q, k, v, **kw)``: q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh)."""
+    return op(q, k, v, **kw)
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -81,14 +101,12 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``cuda`` or ``reference``; None reads the registry's environment
     variables, then ``cuda``), causal, with ``window`` and the scale
     dh ** -0.5."""
-    b, s, _ = x.shape
     dh = cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _rope_qk(q, k, positions, cfg)
-    out = registry.resolve(backend, op="attention").attention(
-        q, k, v, causal=True, window=window, scale=dh ** -0.5)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
-    out = dense(out.to(x.dtype), p["wo"])
+    out = _attend(registry.resolve(backend, op="attention").attention,
+                  q, k, v, causal=True, window=window, scale=dh ** -0.5)
+    out = dense(_merge_heads(out).to(x.dtype), p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -108,7 +126,6 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     cache k/v (B,Hkv,W,dh) where W = window (ring buffer) or max_len.
     Writes the new k/v into the cache in place and returns (out, cache)."""
     b = x.shape[0]
-    dh, hkv, g = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(p, x, cfg)
     # M-RoPE rotates the new token by the same pos in all three rows
     shape = (3, b, 1) if cfg.rope_kind == "mrope" else (b, 1)
@@ -125,14 +142,22 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     valid = kpos >= 0
     if window is not None:
         valid &= kpos > pos - window
-    qg = q.reshape(b, hkv, g, 1, dh).float() * dh ** -0.5
+    out = _attend(functools.partial(_decode_attention, valid=valid), q, k, v)
+    return dense(_merge_heads(out).to(x.dtype), p["wo"]), cache
+
+
+def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """One query over the cache in float32: q (B, Hq, 1, dh), k/v (B,
+    Hkv, W, dh), ``valid`` the (W,) slots it may read."""
+    b, hq, _, dh = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, 1, dh).float() * dh ** -0.5
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
     logits = logits.masked_fill(~valid, NEG)
     prob = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", prob, v.float())
-    out = out.reshape(b, cfg.n_heads, 1, dh).transpose(1, 2)
-    out = out.reshape(b, 1, cfg.n_heads * dh).to(x.dtype)
-    return dense(out, p["wo"]), cache
+    return out.reshape(b, hq, 1, dh)
 
 
 def attn_prefill_cache(k: torch.Tensor, v: torch.Tensor, max_len: int,

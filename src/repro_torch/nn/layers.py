@@ -3,14 +3,25 @@
 Models are described once by a structure function that receives a leaf
 constructor ``leaf(name, shape, axes, init=..., scale=...)`` and returns
 the parameter tree (plain dicts and lists of tensors, with the
-reference's key names and shapes). :func:`init_leaf` draws real
-parameters from a ``torch.Generator`` on its own device, in struct order,
-with the reference's distributions; the draws differ from
-``jax.random``'s, so tests hand the reference's parameters over through
-``models.lm.params_from_numpy`` instead.
+reference's key names and shapes). The same structure with different
+leaf constructors yields:
+
+  * real parameters     (:func:`init_leaf`, from a ``torch.Generator``)
+  * meta tensors        (:func:`abstract_leaf`: shapes and dtypes, no
+                         memory; the dry-run's stand-ins)
+  * logical-axis trees  (:func:`axes_leaf`: :class:`Axes` leaves, read by
+                         ``dist/shardings.py``)
+
+so parameters, dry-run stand-ins and sharding specs cannot diverge.
+:func:`init_leaf` draws in struct order with the reference's
+distributions; the draws differ from ``jax.random``'s, so tests hand the
+reference's parameters over through ``models.lm.params_from_numpy``
+instead.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -18,6 +29,21 @@ import torch
 import torch.nn.functional as F
 
 Leaf = Callable[..., torch.Tensor]
+
+# the inits kept in float32 whatever the parameter dtype
+F32_INITS = frozenset({"ssm_A", "dt_bias", "lru_lambda"})
+
+
+@dataclasses.dataclass(frozen=True)
+class Axes:
+    """Logical-axis names of one tensor, one per dimension. A leaf of an
+    axes tree (not a container), so an axes tree has the structure of
+    the tensor tree it describes."""
+
+    names: tuple
+
+    def __iter__(self):
+        return iter(self.names)
 
 
 def init_leaf(gen: torch.Generator, dtype: torch.dtype) -> Leaf:
@@ -66,6 +92,52 @@ def init_leaf(gen: torch.Generator, dtype: torch.dtype) -> Leaf:
     return leaf
 
 
+def abstract_leaf(dtype: torch.dtype) -> Leaf:
+    """Meta tensors of each leaf's shape, in ``dtype`` (float32 for the
+    inits in :data:`F32_INITS`, as :func:`init_leaf` makes them)."""
+    def leaf(name, shape, axes, init="normal", scale=None):
+        dt = torch.float32 if init in F32_INITS else dtype
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return leaf
+
+
+def axes_leaf() -> Leaf:
+    """Each leaf's logical axes, as an :class:`Axes`."""
+    def leaf(name, shape, axes, init="normal", scale=None):
+        assert len(axes) == len(shape), (name, shape, axes)
+        return Axes(tuple(axes))
+
+    return leaf
+
+
+# ---------------------------------------------------------------------------
+# DTensor versions
+# ---------------------------------------------------------------------------
+
+# The DTensor versions of the model's functions that DTensor cannot run
+# as written (no sharding strategy, or a slow or gathering one), keyed by
+# the function :func:`shardable` returns. ``dist/sharded_ops.py`` fills
+# it when imported; empty, every function runs as written.
+SHARDED: dict[Callable, Callable] = {}
+
+
+def shardable(fn: Callable) -> Callable:
+    """``fn``, or the version registered for it in :data:`SHARDED`,
+    called as ``version(fn, *args, **kwargs)``: on plain tensors it runs
+    ``fn`` as it is, on DTensors it lays them out and runs ``fn`` on each
+    rank's shards or redistributes around it. The model's modules stay
+    free of DTensor code."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        version = SHARDED.get(call)
+        if version is None:
+            return fn(*args, **kwargs)
+        return version(fn, *args, **kwargs)
+
+    return call
+
+
 # ---------------------------------------------------------------------------
 # Layers (plain functions over param dicts)
 # ---------------------------------------------------------------------------
@@ -82,6 +154,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x * inv) * (1.0 + scale.float()).to(dtype)
 
 
+@shardable
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: torch.Tensor | None = None) -> torch.Tensor:
     out = torch.matmul(x, w.to(x.dtype))

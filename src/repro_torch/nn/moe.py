@@ -20,7 +20,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.layers import Leaf, dense, mlp_apply, mlp_struct
+from repro_torch.nn.layers import Leaf, dense, mlp_apply, mlp_struct, \
+    shardable
+
+
+BUF_AXES = ("act_batch", "experts", "moe_cap", "act_embed")
 
 
 def moe_struct(leaf: Leaf, prefix: str, cfg: ModelConfig) -> dict:
@@ -65,6 +69,7 @@ def route(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return top_idx, weights
 
 
+@shardable
 def dispatch(top_idx: torch.Tensor, cfg: ModelConfig, s: int):
     """Sort-based dispatch plan of one batch of rows. Returns (``tok``
     (B, E·C): the token each buffer slot takes, ``fill`` (B, E·C): whether
@@ -102,23 +107,35 @@ def dispatch(top_idx: torch.Tensor, cfg: ModelConfig, s: int):
             torch.gather(keep, 1, inv_sort), cap)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D)."""
+@shardable
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, j]]`` for every row b: x (B, M, D), idx (B, N) ->
+    (B, N, D)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              constrain=None) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D). ``constrain(t, axes)`` is called on the
+    (B, E, C, D) capacity buffer and on the experts' output, as in the
+    reference (None: no-op)."""
+    constrain = constrain or (lambda t, axes: t)
     m = cfg.moe
     b, s, d = x.shape
     top_idx, weights = route(p, x, cfg)
     tok, fill, slot_tok, keep_tok, cap = dispatch(top_idx, cfg, s)
-    buf = torch.gather(x, 1, tok[..., None].expand(-1, -1, d))  # (B, E·C, D)
+    buf = take_rows(x, tok)                                     # (B, E·C, D)
     buf = buf * fill[..., None].to(buf.dtype)
+    buf = constrain(buf.reshape(b, m.num_experts, cap, d), BUF_AXES)
     # the batched expert SwiGLU: one product per matrix over (E, B·C, D)
-    xs = buf.reshape(b, m.num_experts, cap, d).transpose(0, 1).reshape(
-        m.num_experts, b * cap, d)
+    xs = buf.transpose(0, 1).reshape(m.num_experts, b * cap, d)
     h = F.silu(torch.bmm(xs, p["w_gate"].to(x.dtype))) \
         * torch.bmm(xs, p["w_up"].to(x.dtype))
     out_e = torch.bmm(h, p["w_down"].to(x.dtype))               # (E, B·C, D)
-    out_flat = out_e.reshape(m.num_experts, b, cap, d).transpose(0, 1) \
-        .reshape(b, m.num_experts * cap, d)
-    vals = torch.gather(out_flat, 1, slot_tok[..., None].expand(-1, -1, d))
+    out_e = constrain(out_e.reshape(m.num_experts, b, cap, d)
+                      .transpose(0, 1), BUF_AXES)
+    out_flat = out_e.reshape(b, m.num_experts * cap, d)
+    vals = take_rows(out_flat, slot_tok)
     vals = torch.where(keep_tok[..., None], vals, 0.0)
     y = (vals.reshape(b, s, m.top_k, d)
          * weights[..., None].to(vals.dtype)).sum(dim=2)

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.layers import Leaf, dense, rms_norm
+from repro_torch.nn.layers import Leaf, dense, rms_norm, shardable
 # the same depthwise causal conv as the RG-LRU block's
 from repro_torch.nn.rglru import _causal_conv
 
@@ -70,6 +70,7 @@ def _heads_of_groups(t: torch.Tensor, h: int) -> torch.Tensor:
     return torch.repeat_interleave(t, h // g, dim=-2)
 
 
+@shardable
 def _ssd_scan(x, dt, a_log, b, c, cfg: ModelConfig, init_state=None):
     """Chunked SSD. x (B,L,H,P); dt (B,L,H); b/c (B,L,G,N).
     Returns y (B,L,H,P), final_state (B,H,P,N), both float32. As in the

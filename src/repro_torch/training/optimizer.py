@@ -90,10 +90,11 @@ def make_schedule(cfg: AdamWConfig) -> Schedule:
 
 
 def adamw_init(params) -> dict:
-    """Zero float32 moments beside each parameter; the step count (an
-    int32 scalar on the host) at 0."""
+    """Zero float32 moments beside each parameter (laid out as it is: a
+    DTensor parameter's moments are DTensors of its placements); the step
+    count (an int32 scalar on the host) at 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32)}

@@ -26,10 +26,11 @@ def test_wire_bytes_follow_the_ring_convention():
     assert wire_bytes("all-gather", 100, 4) == 300.0
     assert wire_bytes("all-reduce", 100, 4) == 150.0
     assert wire_bytes("reduce-scatter", 100, 4) == 75.0
-    for kind in ("all-gather", "all-reduce", "reduce-scatter"):
+    assert wire_bytes("all-to-all", 100, 4) == 75.0
+    for kind in ("all-gather", "all-reduce", "reduce-scatter", "all-to-all"):
         assert wire_bytes(kind, 100, 1) == 0.0
     with pytest.raises(ValueError, match="unknown collective"):
-        wire_bytes("all-to-all", 100, 4)
+        wire_bytes("collective-permute", 100, 4)
 
 
 def test_comm_log_counts_instructions():

@@ -293,9 +293,9 @@ def _record_router_logits(jx, monkeypatch):
                                @ p["router"].astype(jx.jnp.float32)))
         return j_moe(p, x, cfg, constrain)
 
-    def t_rec(p, x, cfg):
+    def t_rec(p, x, cfg, constrain=None):
         trec.append((x.float() @ p["router"].float()).numpy())
-        return t_moe(p, x, cfg)
+        return t_moe(p, x, cfg, constrain)
 
     monkeypatch.setattr(jx.lm, "moe_apply", j_rec)
     monkeypatch.setattr(t_lm, "moe_apply", t_rec)

@@ -311,12 +311,23 @@ def test_checkpoint_keeps_bfloat16_bits(tmp_path):
 
 
 def test_rules_and_production_meshes_raise():
-    cfg = t_configs.get_smoke("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="7.9"):
-        make_train_step(cfg, AdamWConfig(), rules=object())
+    """The production meshes need their 256 / 512 ranks: without a
+    process group the launcher stops with a message naming the count
+    (the reference's ``mesh_from_cli`` check); rules without a
+    ``DeviceMesh`` cannot lay a train state out."""
+    from repro_torch.dist.shardings import ShardingRules
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="7.9"):
-        main(["--device", "cpu", "--smoke", "--mesh", "single"])
+    from repro_torch.training.train_loop import shard_train_state
+
+    cfg = t_configs.get_smoke("qwen2.5-3b")
+    rules = ShardingRules({"data": 16, "model": 16})
+    params, opt = init_train_state(cfg, AdamWConfig(),
+                                   torch.Generator().manual_seed(0))
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        shard_train_state(rules, cfg, params, opt)
+    for mesh, need in (("single", 256), ("multi", 512)):
+        with pytest.raises(SystemExit, match=f"needs {need} devices"):
+            main(["--device", "cpu", "--smoke", "--mesh", mesh])
 
 
 @pytest.mark.parametrize("arch,extra", [
