@@ -10,7 +10,8 @@ the kernels). Device memory:
 ~6.4 GB of Pubmed block grids for serving and as much again for training
 (the stream phase: as much for its engine, a transient clone per patch
 and a fresh build to compare with), 6.7 GB of reddit grids in phase 4h,
-then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
+6.4 GB of Pubmed grids, a 1.6 GB flat adjacency and up to ~10 GB of
+oracle temporaries in phase 4i, then (after they are freed) 16.4 GB of qwen3-8b weights plus ~1.2 GB of
 KV cache and a few GB of plain-attention scratch, 5.4 GB of minicpm-2b,
 then ~38 GB of command-r-plus-104b at 8 layers, 28.6 GB of
 qwen2-moe-a2.7b (38 GB at its peak), 39.4 GB of llama4-scout-17b-a16e at
@@ -153,7 +154,27 @@ checkpoint to a temporary directory on the host. In order:
    the host build's times (generator, ``shard_graph``, upload), and the
    four GNN kernels against their plain versions at layer 0 (D 602),
    timed beside their bound and a library call (``reddit`` on each
-   kernel row). Printed: the phase's wall time and peak device memory;
+   kernel row), and each network's cuda logits held to the
+   dense-adjacency oracles as in phase 4i (the reddit flat adjacency is
+   2.22 GB). Printed: the phase's wall time and peak device memory;
+4i. dense oracles phase (its own graphs, freed before the LM phases),
+   TF32 off (``env.pinned()``): the five archs compiled with the ``cuda``
+   backend on full-scale Pubmed as phase 4 (hidden 16, 2 layers, gat 2
+   heads, shard n 512); each ``Executable.forward`` launches exactly
+   ``FORWARD_LAUNCHES`` and its logits are held to ``kernels/ref.py``'s
+   dense-adjacency layer oracles (``gcn_layer`` ... ``gat_layer``) run on
+   the executable's own blocks flattened to (19,968, 19,968) (1.6 GB),
+   within atol = rtol = ``ORACLE_TOL``; the oracles launch no kernel. The
+   max-pool and gat oracles take destination rows in chunks of
+   ``ref.ORACLE_CHUNK_BYTES``. Then the five torch examples
+   (``EXAMPLE_RUNS``) as subprocesses on the card, all started together,
+   each within ``EXAMPLE_TIMEOUT_S``: each exits 0; quickstart prints its
+   accuracies, serve_gnn completes every request, the dataflow
+   explorer's report equals the same report computed on the host (its
+   ``main`` run here with ``--device cpu``, the Executable header apart),
+   train_lm's final loss is below the uniform log V. Printed: the
+   max abs error and relative norm per arch, each example's time, the
+   phase's wall time and peak device memory (this process's);
 5. attention kernel phase: flash_attention's two kernels against the
    plain version: the tensor-core kernel (the bf16 route) at the LM
    path's prefill shapes (B 4, Hq 32, Hkv 8, S 1024 and 2048, dh 128,
@@ -272,8 +293,9 @@ checkpoint to a temporary directory on the host. In order:
    fails the run;
 8. summary: a ``kernels`` JSON line (each row with its launches in the
    serve run, a train step, the stream run, the tuned serve run, the
-   mesh serve run, the analyze phase's probes and the paper networks'
-   forwards and steps; flash_attention's also in the minicpm-2b,
+   mesh serve run, the analyze phase's probes, the paper networks'
+   forwards and steps and the dense oracles phase's forwards;
+   flash_attention's also in the minicpm-2b,
    command-r-plus-104b, qwen2-moe-a2.7b, llama4-scout-17b-a16e,
    recurrentgemma-2b and mamba2-1.3b runs, and in phases 6a-6e:
    ``qwen2_vl_serve_launches``, ``musicgen_launches``,
@@ -292,6 +314,7 @@ import gc
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -456,6 +479,21 @@ PAPER_LAUNCHES = {
     "graphsage": {"shard_spmm": 2, "dense_engine": 2},
     "graphsage_pool": {"dense_engine": 4, "seg_gather": 2},
 }
+# phase 4i: a cuda forward against the dense-adjacency oracles, atol =
+# rtol, the reference's own tolerance for its zoo against them
+# (tests/test_gnn_models.py); both sides float32 with TF32 off
+ORACLE_TOL = 5e-5
+ORACLE_SHARD_N = 512       # phase 4's shard n: S 39, 19,968 padded rows
+# the five torch examples on the card (script, arguments), each within
+# EXAMPLE_TIMEOUT_S seconds; serve_lm and train_lm at their defaults
+EXAMPLE_RUNS = (
+    ("torch_quickstart.py", ["--dataset", "pubmed"]),
+    ("torch_serve_gnn.py", ["--dataset", "pubmed", "--scale", "1.0"]),
+    ("torch_dataflow_explorer.py", ["--dataset", "pubmed"]),
+    ("torch_serve_lm.py", []),
+    ("torch_train_lm.py", []),
+)
+EXAMPLE_TIMEOUT_S = 300
 # the two LMs after qwen3-8b: minicpm-2b at full width and depth, 4
 # greedy requests of 1024 prompt tokens and 16 new tokens; its logits are
 # rms_norm(x) . embed^T / 9 with embed drawn at std 0.02 over d 2304, so
@@ -2315,16 +2353,18 @@ def _requiring_grad(params: dict) -> tuple[dict, dict]:
 
 
 def _paper_networks(card: str, label: str, ds, gts: dict,
-                    launches: dict, first_layer_rel: float = GRAD_REL
-                    ) -> dict:
+                    launches: dict, first_layer_rel: float = GRAD_REL,
+                    oracle: bool = False) -> dict:
     """gcn, graphsage and graphsage_pool (``core.models``) on one graph:
     logits within 1e-4 of the same ``make_forward`` on a controller
     pinned to ``reference``, launches per forward and per train step
     exactly ``PAPER_LAUNCHES``, the masked cross-entropy step's gradients
     finite, nonzero and within ``GRAD_REL`` of the reference backend's
     (the first layer's within ``first_layer_rel``); the median
-    synchronized forward printed. Adds the forwards' and steps' launches
-    to ``launches``; returns gcn's gradients by backend."""
+    synchronized forward printed; with ``oracle``, the logits also held
+    to the dense-adjacency oracles (``_oracle_check``). Adds the forwards'
+    and steps' launches to ``launches``; returns gcn's gradients by
+    backend."""
     from repro_torch.core import models
     from repro_torch.core.engines import (DenseEngine, GNNeratorController,
                                           GraphEngine)
@@ -2364,6 +2404,9 @@ def _paper_networks(card: str, label: str, ds, gts: dict,
                                  f"the wrong shape")
         err = (logits - expect).abs().max().item()
         torch.testing.assert_close(logits, expect, atol=1e-4, rtol=1e-4)
+        if oracle:
+            _oracle_check(f"paper {label} {net}", net, logits,
+                          params["layers"], gt, feats, card)
 
         # the cuda step twice: the spread between two runs of the same
         # code is the plain backward's atomics at work
@@ -2770,7 +2813,8 @@ def paper_phase(dev, card: str, kernels: dict) -> dict:
           + ", upload " + ", ".join(f"{k} {v:.2f} s"
                                      for k, v in upload_s.items()))
     grads = _paper_networks(card, f"reddit x{REDDIT_SCALE:g}", reddit, gts,
-                            launches, first_layer_rel=GRAD_REL_HUB)
+                            launches, first_layer_rel=GRAD_REL_HUB,
+                            oracle=True)
     _gcn_float64_check(card, reddit, gts["gcn"], grads)
     del grads
     print(f"paper reddit x{REDDIT_SCALE:g}: linear index hub rows (more "
@@ -2785,6 +2829,225 @@ def paper_phase(dev, card: str, kernels: dict) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def _oracle_logits(arch: str, layers: list, gt,
+                   feats: torch.Tensor) -> torch.Tensor:
+    """(N, C) logits of ``kernels/ref.py``'s dense-adjacency oracles, layer
+    by layer on ``gt``'s blocks flattened to one (S·n, S·n) adjacency, as
+    the reference's tests/test_gnn_models.py runs its own. ``arch`` is a
+    zoo arch or a paper network; ``feats`` (N, F) on the card."""
+    from repro_torch.kernels import ref
+
+    s, _, n, _ = gt.blocks.shape
+    a = gt.blocks.permute(0, 2, 1, 3).reshape(s * n, s * n)
+    h = torch.zeros((s * n, feats.shape[1]), device=feats.device)
+    h[:feats.shape[0]] = feats
+    for i, L in enumerate(layers):
+        act = "relu" if i < len(layers) - 1 else "none"
+        if arch == "gcn":
+            h = ref.gcn_layer(a, h, L["w"], activation=act)
+        elif arch in ("sage_mean", "graphsage"):
+            h = ref.sage_mean_layer(a, h, L["w"], activation=act)
+        elif arch in ("sage_max", "graphsage_pool"):
+            h = ref.sage_max_pool_layer(a, h, L["w_pool"], L.get("b_pool"),
+                                        L["w"], activation=act)
+        elif arch == "gin":
+            h = ref.gin_layer(a, h, L["eps"], L["w1"], L["b1"], L["w2"],
+                              L["b2"], activation=act)
+        else:
+            h = ref.gat_layer(a, h, L["w"], L["a_src"], L["a_dst"],
+                              activation=act)
+    return h[:gt.num_nodes]
+
+
+def _oracle_check(label: str, arch: str, logits: torch.Tensor, layers: list,
+                  gt, feats: torch.Tensor, card: str) -> None:
+    """Hold a cuda forward's ``logits`` to the dense-adjacency oracles on
+    the same graph and parameters: atol = rtol = ``ORACLE_TOL``; the
+    oracles must launch no kernel."""
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        expect, launched = _launched(
+            lambda: _oracle_logits(arch, layers, gt, feats))
+    oracle_s = time.perf_counter() - t0
+    if launched:
+        raise AssertionError(f"oracle {label}: the oracles launched "
+                             f"{launched}")
+    if expect.shape != logits.shape or not torch.isfinite(expect).all():
+        raise AssertionError(f"oracle {label}: oracle logits "
+                             f"{tuple(expect.shape)} not finite or not of "
+                             f"the forward's shape {tuple(logits.shape)}")
+    diff = logits - expect
+    print(f"oracle {label} ({card}): logits {tuple(logits.shape)} vs the "
+          f"dense-adjacency oracles max_abs_err "
+          f"{diff.abs().max().item():.3e}, relative norm "
+          f"{(diff.norm() / expect.norm().clamp_min(1e-30)).item():.3e} "
+          f"(|logit| max {expect.abs().max().item():.3e}; gate atol = rtol "
+          f"= {ORACLE_TOL:g}); oracles {oracle_s:.2f} s (host clock)")
+    torch.testing.assert_close(logits, expect, atol=ORACLE_TOL,
+                               rtol=ORACLE_TOL)
+
+
+def _explorer_host_report(args: list) -> list[str]:
+    """The dataflow explorer's report computed in this process with
+    ``--device cpu``: the numbers are host arithmetic, so the card's run
+    must print the same lines (its Executable header names its device)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch import runtime
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dataflow_explorer", ROOT / "examples" /
+        "torch_dataflow_explorer.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if mod.main([*args, "--device", "cpu"]) != 0:
+            raise AssertionError("dataflow explorer on the host failed")
+    runtime.default_store().evict()
+    return [ln for ln in buf.getvalue().splitlines()
+            if not ln.startswith("Executable[")]
+
+
+def _example_verdict(script: str, out: str, host_explorer: list) -> str:
+    """What one example's report must show (see the module docstring);
+    returns its line for the log."""
+    if script == "torch_quickstart.py":
+        acc = re.search(r"train-acc ([\d.]+) test-acc ([\d.]+)", out)
+        if not acc:
+            raise AssertionError(f"{script}: no accuracy printed")
+        return f"train-acc {acc[1]} test-acc {acc[2]}"
+    if script == "torch_serve_gnn.py":
+        done = re.search(r"server: (\d+)/(\d+) completed, 0 rejected, "
+                         r"0 expired", out)
+        if not done or done[1] != done[2]:
+            raise AssertionError(f"{script}: not every request completed")
+        return f"{done[1]}/{done[2]} requests completed"
+    if script == "torch_dataflow_explorer.py":
+        got = [ln for ln in out.splitlines()
+               if not ln.startswith("Executable[")]
+        if got != host_explorer:
+            raise AssertionError(f"{script}: the card's report differs "
+                                 f"from the host's:\n{out}")
+        return (f"{len(got)} report lines equal the host's; "
+                + next(ln for ln in got if "traffic ratio" in ln))
+    if script == "torch_serve_lm.py":
+        served = re.search(r"served (\d+) requests, (\d+) tokens", out)
+        # the example's default: 24 new tokens a request
+        if not served or int(served[2]) != int(served[1]) * 24:
+            raise AssertionError(f"{script}: not every token served")
+        return served[0]
+    loss = re.search(r"loss: ([\d.]+) -> ([\d.]+) \(uniform floor "
+                     r"([\d.]+)\)", out)
+    if not loss or not float(loss[2]) < min(float(loss[1]), float(loss[3])):
+        raise AssertionError(f"{script}: the final loss is not below the "
+                             f"first and the uniform log V")
+    return loss[0]
+
+
+def example_runs(card: str, device: str = "cuda") -> None:
+    """``EXAMPLE_RUNS`` as subprocesses on ``device``, all started
+    together, each within ``EXAMPLE_TIMEOUT_S``; every one must exit 0
+    and show what ``_example_verdict`` asks. The dataflow explorer's host
+    report is computed here meanwhile. A fresh TMPDIR holds train_lm's
+    default checkpoint directory and the outputs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=tmp)
+        t0 = time.perf_counter()
+        procs, files = {}, {}
+        try:
+            for script, args in EXAMPLE_RUNS:
+                files[script] = (open(os.path.join(tmp, script + ".out"),
+                                      "w+"),
+                                 open(os.path.join(tmp, script + ".err"),
+                                      "w+"))
+                procs[script] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / script), *args,
+                     "--device", device], stdout=files[script][0],
+                    stderr=files[script][1], env=env, cwd=ROOT)
+            host_explorer = _explorer_host_report(
+                dict(EXAMPLE_RUNS)["torch_dataflow_explorer.py"])
+            took = {}
+            while len(took) < len(procs):
+                for script, proc in procs.items():
+                    if script not in took and proc.poll() is not None:
+                        took[script] = time.perf_counter() - t0
+                if time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S:
+                    raise AssertionError(
+                        f"examples still running after {EXAMPLE_TIMEOUT_S} "
+                        f"s: {sorted(set(procs) - set(took))}")
+                time.sleep(0.1)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for fh in files.values():
+                for f in fh:
+                    f.flush()
+        for script, proc in procs.items():
+            out_f, err_f = files[script]
+            out_f.seek(0)
+            err_f.seek(0)
+            out, err = out_f.read(), err_f.read()
+            out_f.close()
+            err_f.close()
+            if proc.returncode != 0:
+                raise AssertionError(f"{script} exited {proc.returncode}:\n"
+                                     f"{out[-3000:]}\n{err[-3000:]}")
+            args = " ".join(dict(EXAMPLE_RUNS)[script]) or "(defaults)"
+            print(f"example {script} {args} ({card}): exit 0 in {took[script]:.1f} s (all started "
+                  f"together); {_example_verdict(script, out, host_explorer)}")
+
+
+def oracle_phase(dev, card: str, device: str = "cuda") -> dict:
+    """Phase 4i (see the module docstring): the five archs' cuda forwards
+    on full-scale Pubmed against the dense-adjacency oracles, then the
+    torch examples on ``device``. Returns the forwards' kernel
+    launches."""
+    from repro_torch import env, runtime
+    from repro_torch.gnn.models import ZooSpec
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import _lib
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launches = dict.fromkeys(_lib.KERNELS, 0)
+    ds = make_dataset("pubmed", seed=0)
+    prof = ds.profile
+    feats = torch.from_numpy(ds.features).to(dev)
+    store = runtime.GraphStore()
+    with env.pinned():
+        for arch in ARCHS:
+            spec = ZooSpec(arch, prof.feature_dim, 16, prof.num_classes,
+                           num_layers=2, heads=2)
+            exe = runtime.compile(spec, ds, device=dev, backend="cuda",
+                                  max_shard_n=ORACLE_SHARD_N, store=store)
+            logits, fwd = _launched(exe.forward)
+            if fwd != FORWARD_LAUNCHES[arch]:
+                raise AssertionError(f"oracle pubmed {arch}: a forward "
+                                     f"launched {fwd}, expected "
+                                     f"{FORWARD_LAUNCHES[arch]}")
+            for k, v in fwd.items():
+                launches[k] += v
+            _oracle_check(f"pubmed {arch}", arch, logits,
+                          exe.params["layers"], exe.gt, feats, card)
+            del exe, logits
+    del store, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    example_runs(card, device)
+    print(f"oracle phase wall time ({card}): "
+          f"{time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{peak / 1e9:.2f} GB (this process; each example's is its own); "
+          f"launches { {k: v for k, v in launches.items() if v} }")
     return launches
 
 
@@ -4430,6 +4693,7 @@ def main() -> None:
     mesh_launches = mesh_phase(dev, card, kernels)
     analyze_launches = analyze_phase(dev, card)
     paper_launches = paper_phase(dev, card, kernels)
+    oracle_launches = oracle_phase(dev, card)
 
     attention_kernel_phase(torch.device("cuda"), kernels)
     flash = kernels["flash_attention"]
@@ -4466,6 +4730,7 @@ def main() -> None:
         row["mesh_launches"] = mesh_launches.get(name, 0)
         row["analyze_launches"] = analyze_launches.get(name, 0)
         row["paper_launches"] = paper_launches.get(name, 0)
+        row["oracle_launches"] = oracle_launches.get(name, 0)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,4 @@
-from repro_torch.configs.registry import ARCHS, get_config, get_smoke
+from repro_torch.configs.registry import (ARCHS, SHAPES, get_config,
+                                          get_smoke, shape_applicable)
 
-__all__ = ["ARCHS", "get_config", "get_smoke"]
+__all__ = ["ARCHS", "SHAPES", "get_config", "get_smoke", "shape_applicable"]

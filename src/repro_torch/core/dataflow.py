@@ -1,4 +1,4 @@
-"""GNN dataflows (paper §IV, Algorithm 1 + Table I) — the planner's part.
+"""GNN dataflows (paper §IV, Algorithm 1 + Table I).
 
 The conventional dataflow walks the S×S shard grid with the *entire*
 feature vector (B = D) resident per node. The paper's feature
@@ -6,10 +6,20 @@ dimension-blocking dataflow adds an outer loop over D/B feature blocks so
 only an (n × B) slice of features is on-chip at a time, allowing larger
 shards (bigger n, smaller S) for a fixed on-chip budget.
 
-This module carries what the layer planner (gnn/executor.py) needs:
-schedule generation, the Table-I traversal choice and the traffic
-simulator. It is a host-side numpy copy of ``repro.core.dataflow`` and
-must stay arithmetic-for-arithmetic equal to it, so plans agree.
+This module provides:
+  * schedule generation (loop-nest iteration order, src-/dst-stationary,
+    serpentine S-pattern),
+  * the analytical Table-I read/write cost model and the traversal
+    choice it implies,
+  * a traffic simulator that walks a schedule and counts off-chip
+    feature transfers and on-chip edge re-reads (the layer planner,
+    gnn/executor.py, and the platform model, core/perf_model.py, read
+    it),
+  * the paper's §IV-B headline comparison of the blocked and
+    conventional dataflows at one on-chip budget.
+
+It is a host-side numpy copy of ``repro.core.dataflow`` and must stay
+arithmetic-for-arithmetic equal to it, so plans and reports agree.
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ from typing import Iterator, Literal
 
 import numpy as np
 
+from repro_torch.core.sharding import max_shard_nodes_for_budget
 from repro_torch.utils import cdiv
 
 Order = Literal["src_stationary", "dst_stationary"]
@@ -151,3 +162,40 @@ def simulate_traffic(
         onchip_edge_reads=edge_reads,
         steps=steps,
     )
+
+
+def blocked_vs_conventional(
+    *,
+    num_nodes: int,
+    D: int,
+    B: int,
+    onchip_bytes: int,
+    dtype_bytes: int = 4,
+) -> dict[str, float]:
+    """Headline comparison (paper §IV-B): for a fixed on-chip budget, the
+    blocked dataflow fits n_blocked = budget/(B) nodes vs n_conv =
+    budget/(D) nodes, so S shrinks by ~D/B and off-chip traffic drops.
+
+    Returns the shard counts and Table-I read totals for both dataflows.
+    """
+    n_conv = max_shard_nodes_for_budget(onchip_bytes, D, dtype_bytes)
+    n_blk = max_shard_nodes_for_budget(onchip_bytes, B, dtype_bytes)
+    S_conv = cdiv(num_nodes, n_conv)
+    S_blk = cdiv(num_nodes, n_blk)
+    costs_conv = table1_costs(S_conv)["dst_stationary"]
+    costs_blk = table1_costs(S_blk)["dst_stationary"]
+    conv_bytes = (costs_conv["read"] + costs_conv["write"]) * n_conv * D * dtype_bytes
+    # the last (partial) feature block still costs a full grid sweep, so the
+    # block count is ceil(D/B)
+    blk_bytes = (
+        (costs_blk["read"] + costs_blk["write"]) * n_blk * B * dtype_bytes * cdiv(D, max(B, 1))
+    )
+    return {
+        "n_conventional": n_conv,
+        "n_blocked": n_blk,
+        "S_conventional": S_conv,
+        "S_blocked": S_blk,
+        "offchip_bytes_conventional": conv_bytes,
+        "offchip_bytes_blocked": blk_bytes,
+        "traffic_ratio": conv_bytes / max(blk_bytes, 1.0),
+    }

@@ -44,9 +44,22 @@ class ShardedGraph:
     degrees: np.ndarray     # (N_padded,) in-degree used for normalization
 
     @property
+    def n_padded(self) -> int:
+        return self.S * self.n
+
+    @property
     def occupancy(self) -> np.ndarray:
         """(S, S) edge count per shard."""
         return self.edge_valid.sum(axis=-1)
+
+    @property
+    def density(self) -> float:
+        """Fraction of occupied-shard block entries that are real edges."""
+        occ = self.occupancy
+        nz = (occ > 0).sum()
+        if nz == 0:
+            return 0.0
+        return float(occ.sum()) / (nz * self.n * self.n)
 
 
 def shard_graph(

@@ -11,11 +11,13 @@ autotuned winner, a smoke run's times) was taken under a pinned
 environment that :func:`describe` records beside it.
 
 The reference's ``repro.env`` also pins the jax platform, the host
-device count and 64-bit arrays. They have no counterpart here: the
-port's device is an explicit argument of every entry point, its dtype is
-an explicit float32, and a mesh of many ranks on one device is an
-explicit :class:`~repro_torch.dist.mesh.LocalMesh`, which needs no
-forced device count.
+device count and 64-bit arrays (``set_platform``,
+``set_host_device_count``, ``enable_x64``): those three are JAX-only and
+have no counterpart here. The port's device is an explicit argument of
+every entry point, its dtype is an explicit float32, and a mesh of many
+ranks on one device is an explicit
+:class:`~repro_torch.dist.mesh.LocalMesh`, which needs no forced device
+count.
 """
 from __future__ import annotations
 

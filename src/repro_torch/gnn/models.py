@@ -18,10 +18,16 @@ Architectures (all multi-layer, relu between layers, logits at the end):
 Parameters are a plain dict ``{"layers": [per-layer dict of tensors]}``
 with the reference package's key names and shapes, so parameters cross
 between the two packages through numpy (:func:`params_from_numpy`).
+
+Forward execution lives in ``repro_torch.runtime``; ``build_zoo_graph``,
+``init_zoo`` and ``zoo_forward`` remain as the reference's deprecation
+shims over it.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -45,6 +51,19 @@ def graph_signature(arch: str) -> tuple[str, bool]:
     Two models with the same signature share one sharded graph build.
     """
     return _GRAPH_SIG[arch]
+
+
+def build_zoo_graph(edges: np.ndarray, num_nodes: int, n: int, arch: str,
+                    device: torch.device | str = "cuda"):
+    """Deprecated: use ``repro_torch.runtime.compile`` (which builds and
+    caches GraphTensors per signature) or
+    ``repro_torch.runtime.forward.build_graph_tensors``."""
+    warnings.warn(
+        "build_zoo_graph is deprecated; use repro_torch.runtime.compile(...) "
+        "— it plans, shards and caches the graph in one call",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.runtime.forward import build_graph_tensors
+    return build_graph_tensors(edges, num_nodes, n, arch, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,3 +155,32 @@ def params_from_numpy(tree, device: torch.device | str):
         return tree.to(device=device, dtype=torch.float32)
     # copy: the source may be a read-only view (a JAX array's buffer)
     return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def init_zoo(gen: torch.Generator, spec: ZooSpec,
+             device: torch.device | str = "cuda") -> dict:
+    """Deprecated: use :func:`init_params` (or ``runtime.compile(seed=)``).
+
+    The reference's ``init_zoo(key, spec)`` draws from a JAX key; this one
+    draws from the ``torch.Generator`` ``gen``, so the numbers differ from
+    the reference's for any seed (the tree's keys, shapes and dtypes are
+    the same). To run both packages on one set of weights, hand the
+    reference's tree to :func:`params_from_numpy`."""
+    warnings.warn(
+        "init_zoo is deprecated; use repro_torch.runtime.compile(...), "
+        "which draws the parameters (or init_params)",
+        DeprecationWarning, stacklevel=2)
+    return init_params(spec, gen, device)
+
+
+def zoo_forward(spec: ZooSpec, params: dict, gt, h: torch.Tensor, *,
+                plans: Sequence | None = None) -> torch.Tensor:
+    """Deprecated: compile once with ``repro_torch.runtime.compile`` and
+    call ``Executable.forward()`` instead of re-chaining plan, graph and
+    forward."""
+    warnings.warn(
+        "zoo_forward is deprecated; use "
+        "repro_torch.runtime.compile(...).forward()",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.runtime.forward import forward
+    return forward(spec, params, gt, h, plans=plans)

@@ -59,6 +59,10 @@ class GraphData:
     # GraphStore keys so a stale build is never served
     version: int = 0
 
+    @property
+    def size_mb(self) -> float:
+        return self.features.nbytes / 2 ** 20
+
 
 def _preferential_attachment_edges(n: int, e_target: int, rng: np.random.Generator) -> np.ndarray:
     """Undirected preferential-attachment edge list with ~e_target/2 unique

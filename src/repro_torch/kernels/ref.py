@@ -15,6 +15,17 @@ rows (reddit at 0.1 scale: 11.5 M edges x 602 features would be 27.6 GB
 a copy). Every column is reduced alone, in the same edge order, so the
 blocks give bitwise the same output as one block. Below it (and for every
 Table-II graph's index) they run as one block.
+
+The zoo's dense-adjacency layer oracles (:func:`gcn_layer`,
+:func:`sage_mean_layer`, :func:`sage_max_pool_layer`, :func:`gin_layer`,
+:func:`gat_layer`) follow the reference's of the same names.
+
+One reference name needs no counterpart here: ``seg_gather_agg``, the
+edge-list aggregation of ONE (dst, src) shard pair. Its ``mean`` and
+``keep_identity`` modes serve only the reference's own JAX backends,
+which fold partial maxima pair by pair; the port aggregates the whole
+grid at once (:func:`seg_gather`, held to the reference's
+``seg_gather_aggregate`` by tests/test_torch_gather_index.py).
 """
 from __future__ import annotations
 
@@ -233,6 +244,104 @@ def seg_gather_indexed(index, h: torch.Tensor, *,
     out = _by_columns(lambda hc: _reduce(hc[src], dst, rows, op),
                       h.reshape(-1, d).float(), src.numel())
     return out.reshape(rows // n, n, d).to(h.dtype)
+
+
+# --------------------------------------------------------------------------
+# GNN model-zoo layer oracles. These run on FLAT (N, D) features and a
+# densified (N, N) adjacency carrying the normalization the shard grid
+# bakes in (gcn / mean / sum weights; masks are adj != 0): the ground
+# truth each zoo forward must reproduce, with none of the runtime's
+# assembly (tests/test_torch_oracles.py, chip_smoke.py phase 4i).
+# --------------------------------------------------------------------------
+
+# the max-pool and gat oracles hold (rows, N, ...) float32 temporaries:
+# they take destination rows in chunks of at most this many bytes each
+# (full-scale Pubmed's (N, N, 500) max-pool candidates are ~800 GB).
+# Max and softmax are row-local, so any chunking gives the same result.
+ORACLE_CHUNK_BYTES = 2 << 30
+
+
+def _row_chunks(rows: int, row_bytes: int) -> list[tuple[int, int]]:
+    per = max(1, ORACLE_CHUNK_BYTES // max(row_bytes, 1))
+    return [(r0, min(rows, r0 + per)) for r0 in range(0, rows, per)]
+
+
+def gcn_layer(adj: torch.Tensor, h: torch.Tensor, w: torch.Tensor, *,
+              activation: str = "none") -> torch.Tensor:
+    """act((Â H) W) — flat GCN layer; adj is the gcn-normalized adjacency."""
+    agg = adj.float() @ h.float()
+    return dense_engine(agg.to(h.dtype), w, activation=activation)
+
+
+def sage_mean_layer(adj_mean: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                    *, activation: str = "none") -> torch.Tensor:
+    """act(W [mean_agg(h); h]) — GraphSAGE mean aggregator (adj row-mean)."""
+    agg = (adj_mean.float() @ h.float()).to(h.dtype)
+    return dense_engine(torch.cat([agg, h], dim=-1), w, activation=activation)
+
+
+def sage_max_pool_layer(adj_mask: torch.Tensor, h: torch.Tensor,
+                        w_pool: torch.Tensor, b_pool: torch.Tensor | None,
+                        w: torch.Tensor, *,
+                        activation: str = "none") -> torch.Tensor:
+    """GraphSAGE max-pool: z = relu(h W_p + b_p); z̄ = max_N z; act(W [z̄;h]).
+    A destination with no neighbor gets z̄ = 0."""
+    z = dense_engine(h, w_pool, b_pool, activation="relu").float()
+    mask = adj_mask != 0
+    u, d = z.shape
+    zbar = torch.cat([
+        torch.where(mask[r0:r1, :, None], z[None],
+                    float("-inf")).amax(dim=1)
+        for r0, r1 in _row_chunks(mask.shape[0], u * d * 4)])
+    zbar = torch.where(torch.isfinite(zbar), zbar, 0.0).to(h.dtype)
+    return dense_engine(torch.cat([zbar, h], dim=-1), w, activation=activation)
+
+
+def gin_layer(adj_sum: torch.Tensor, h: torch.Tensor, eps, w1: torch.Tensor,
+              b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, *,
+              activation: str = "none") -> torch.Tensor:
+    """GIN: MLP((1+ε) h + Σ_N h); adj_sum has NO self loops (ε handles it)."""
+    agg = adj_sum.float() @ h.float()
+    x = ((1.0 + eps) * h.float() + agg).to(h.dtype)
+    hid = dense_engine(x, w1, b1, activation="relu")
+    return dense_engine(hid, w2, b2, activation=activation)
+
+
+def gat_layer(adj_mask: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+              a_src: torch.Tensor, a_dst: torch.Tensor, *,
+              negative_slope: float = 0.2, activation: str = "none",
+              concat_heads: bool = True) -> torch.Tensor:
+    """Multi-head GAT layer.
+
+    h: (N, D); w: (D, H*F); a_src/a_dst: (H, F); adj_mask: (N, N) nonzero
+    where edge u->v exists at [v, u] (self loops included upstream).
+    α_vu = softmax_u( leakyrelu(a_dst·z_v + a_src·z_u) ), out_v = Σ α z_u;
+    a destination with no neighbor gets α = 0. Heads are concatenated
+    (hidden layers) or averaged (output layer).
+    """
+    n = h.shape[0]
+    heads, f = a_src.shape
+    z = (h.float() @ w.float()).reshape(n, heads, f)
+    s_src = torch.einsum("nhf,hf->nh", z, a_src.float())
+    s_dst = torch.einsum("nhf,hf->nh", z, a_dst.float())
+    parts = []
+    # the largest temporary is the (rows, N, H, F) product α·z, summed
+    # over the sources as a reduction: a matrix product's summation order
+    # would depend on how many rows a chunk has
+    for r0, r1 in _row_chunks(n, adj_mask.shape[1] * heads * f * 4):
+        mask = (adj_mask[r0:r1] != 0)[:, :, None]
+        logits = F.leaky_relu(s_dst[r0:r1, None, :] + s_src[None, :, :],
+                              negative_slope)
+        logits = torch.where(mask, logits, float("-inf"))
+        m = logits.amax(dim=1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        e = torch.where(mask, torch.exp(logits - m), 0.0)
+        denom = e.sum(dim=1, keepdim=True)
+        alpha = torch.where(denom > 0, e / denom.clamp_min(1e-30), 0.0)
+        parts.append((alpha[..., None] * z[None]).sum(dim=1))
+    out = torch.cat(parts)
+    out = out.reshape(n, heads * f) if concat_heads else out.mean(dim=1)
+    return _activate(out, activation).to(h.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

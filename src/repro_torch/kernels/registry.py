@@ -18,6 +18,10 @@ most specific wins:
   4. the default, ``cuda``.
 
 ``ref`` is accepted everywhere as an alias for ``reference``.
+
+The reference's ``JaxBackend`` (jnp versions) and ``PallasBackend`` (the
+Pallas kernels) need no counterpart of their names: :class:`ReferenceBackend`
+and :class:`CudaBackend` are theirs.
 """
 from __future__ import annotations
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import OrderedDict
 from typing import Sequence
 
@@ -142,6 +143,7 @@ class GNNServeEngine:
         self.edge_slack = edge_slack
         self.invalidation = invalidation
         self._graph_versions: dict[str, int] = {}  # guarded-by: Server._step_lock
+        self._pending: list[NodeRequest] = []  # guarded-by: caller (deprecated sync shim)
         # per-graph accumulated delta-touched node ids, drained by the
         # stream trainer (take_dirty) from its own thread without the
         # step lock: mutate's read-union-write and the pop must not race
@@ -487,6 +489,29 @@ class GNNServeEngine:
             for i, pred in zip(idxs, preds):
                 out[i] = pred
         return out  # type: ignore[return-value]
+
+    # -- deprecated one-shot shim ------------------------------------------
+
+    def submit(self, req: NodeRequest) -> None:
+        """Deprecated: queue one request for the next ``flush()``."""
+        warnings.warn(
+            "GNNServeEngine.submit/flush are deprecated; submit through "
+            "repro_torch.serving.Server for scheduled, ticketed serving",
+            DeprecationWarning, stacklevel=2)
+        self._pending.append(req)
+
+    def flush(self) -> list[Prediction]:
+        """Deprecated: serve all pending requests, micro-batched by
+        (model, graph). The queue is cleared only on success: a rejected
+        batch (unknown name, bad node ids) leaves every request queued
+        for the caller to repair or drop."""
+        warnings.warn(
+            "GNNServeEngine.submit/flush are deprecated; submit through "
+            "repro_torch.serving.Server for scheduled, ticketed serving",
+            DeprecationWarning, stacklevel=2)
+        preds = self.serve(self._pending)
+        self._pending = []
+        return preds
 
     def cache_report(self) -> str:
         s = self.stats

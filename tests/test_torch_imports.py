@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no reference package, no quiet CPU.
 
-An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
-fails on any import of ``jax``, ``jaxlib``, ``repro`` or ``repro.*``
-(``repro_torch`` itself is fine). And an entry point that was not asked
+An AST scan of every module of ``src/repro_torch``, of ``chip_smoke.py``
+and of the torch examples (``examples/torch_*.py``) fails on any import
+of ``jax``, ``jaxlib``, ``repro`` or ``repro.*`` (``repro_torch`` itself
+is fine). And an entry point that was not asked
 for the CPU must raise on a machine without CUDA rather than run there.
 """
 import ast
@@ -15,7 +16,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(tree: ast.AST):
@@ -35,7 +36,9 @@ def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "forward.py", "registry.py", "serve.py",
             "lm.py", "attention.py", "flash_attention.py", "engine.py",
-            "qwen3_8b.py"} <= names
+            "qwen3_8b.py", "torch_quickstart.py", "torch_serve_gnn.py",
+            "torch_dataflow_explorer.py", "torch_serve_lm.py",
+            "torch_train_lm.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
