@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engines import GraphTensors
 from repro_torch.gnn.executor import ModelPlan
 from repro_torch.gnn.models import ZooSpec, params_from_numpy
@@ -193,8 +194,12 @@ class Executable:
         computed once per parameter set, then every node-batch request
         is a numpy gather."""
         if self._probs is None:
-            host = self.forward().cpu().numpy()  # analyze: allow(host-sync)
-            self._probs = _softmax(host.astype(np.float32))
+            with obs.span("runtime.forward"):     # the enqueue, no sync
+                logits = self.forward()
+            with obs.span("runtime.copy"):        # the kernels, then the copy
+                host = logits.cpu().numpy()  # analyze: allow(host-sync)
+            with obs.span("runtime.softmax"):
+                self._probs = _softmax(host.astype(np.float32))
             self._stale = None      # one full recompute clears staleness
         return self._probs
 
@@ -206,9 +211,11 @@ class Executable:
         ids = self._check_node_ids(node_ids)
         if not self.probs_fresh_for(ids):
             self.invalidate()
-        p = self.full_probs()[ids]
-        return (np.argmax(p, axis=-1).astype(np.int32),
-                np.max(p, axis=-1).astype(np.float32))
+        probs = self.full_probs()
+        with obs.span("runtime.answer"):
+            p = probs[ids]
+            return (np.argmax(p, axis=-1).astype(np.int32),
+                    np.max(p, axis=-1).astype(np.float32))
 
     def step(self, node_id_batches) -> list[tuple[np.ndarray, np.ndarray,
                                                   float]]:

@@ -39,6 +39,7 @@ import threading
 import time
 from typing import Any, Hashable, Protocol, Sequence, runtime_checkable
 
+from repro_torch import obs
 from repro_torch.analyze.lock_sanitizer import new_condition, new_lock
 from repro_torch.serving.scheduler import (MicroBatchScheduler,
                                            QueueEntry, SchedulerConfig)
@@ -112,6 +113,8 @@ class Ticket:
         self._server = server
         self._event = threading.Event()
         self._outcome: Outcome | None = None
+        # admission -> dispatch; closed by the step that dispatches it
+        self._queued = obs.span("server.queue")
 
     def poll(self) -> Outcome | None:
         """Non-blocking: the outcome, or None while still queued/running."""
@@ -205,10 +208,12 @@ class Server:
         the engine. Returns the number of tickets resolved (completed +
         expired + failed); 0 means nothing was dispatchable. Safe to call
         while a background thread runs: step passes are serialized."""
+        wait = obs.span("server.lock_wait")
         with self._step_lock:
-            return self._step(force)
+            wait.end()
+            return self._step(force, wait)
 
-    def _step(self, force: bool) -> int:
+    def _step(self, force: bool, wait) -> int:
         with self._cv:
             now = self._clock()
             expired = self._sched.sweep_expired(now)
@@ -221,6 +226,15 @@ class Server:
                 return len(expired)
             key, entries = formed
             dispatch_s = now
+        wait.close()        # recorded only for passes that dispatch
+        for e in entries:
+            e.ticket._queued.close()
+        with obs.span("server.step"):
+            return len(expired) + self._dispatch(key, entries, dispatch_s)
+
+    def _dispatch(self, key, entries: list, dispatch_s: float) -> int:
+        """Run one formed micro-batch through the engine and resolve its
+        tickets; returns how many it resolved."""
         payloads = [e.payload for e in entries]
         t0 = time.perf_counter()
         try:
@@ -234,7 +248,7 @@ class Server:
                 self._m["failed"] += len(entries)
                 for e in entries:
                     e.ticket._resolve(Failed(f"{type(err).__name__}: {err}"))
-            return len(expired) + len(entries)
+            return len(entries)
         batch_ms = (time.perf_counter() - t0) * 1e3
         with self._cv:
             for e, r in zip(entries, results):
@@ -258,7 +272,7 @@ class Server:
                 self._m["completed"] += 1
                 self._m["queue_ms_total"] += queue_ms
                 self._m["engine_ms_total"] += engine_ms
-        return len(expired) + len(entries)
+        return len(entries)
 
     def drain(self) -> int:
         """Run until every queue is empty (flushes underfull batches);
@@ -287,8 +301,11 @@ class Server:
         (the engine was not modified on a validation error) and do not
         touch queued requests.
         """
-        with self._step_lock:
-            out = apply_fn(self._engine)
+        with obs.span("server.reload"):
+            wait = obs.span("server.lock_wait")
+            with self._step_lock:
+                wait.close()
+                out = apply_fn(self._engine)
         with self._cv:
             self._m["reloads"] += 1
         return out
@@ -311,7 +328,9 @@ class Server:
             raise TypeError(
                 f"engine {type(self._engine).__name__} does not support "
                 f"graph mutation (no .mutate)")
+        wait = obs.span("server.lock_wait")
         with self._step_lock:
+            wait.close()
             out = mutate_fn(graph, delta)
         with self._cv:
             self._m["mutations"] += 1
@@ -361,7 +380,8 @@ class Server:
         if self._thread is None:
             self._stopping = False
             self._thread = threading.Thread(
-                target=self._drive, args=(poll_interval_s,), daemon=True)
+                target=self._drive, args=(poll_interval_s,), daemon=True,
+                name="repro-server")
             self._thread.start()
         return self
 

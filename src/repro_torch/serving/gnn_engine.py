@@ -45,7 +45,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import runtime
+from repro_torch import obs, runtime
 from repro_torch.analyze.lock_sanitizer import new_lock
 from repro_torch.gnn.executor import ModelPlan
 from repro_torch.gnn.models import (ZooSpec, graph_signature, init_params,
@@ -231,22 +231,23 @@ class GNNServeEngine:
         :meth:`repro_torch.serving.api.Server.reload` so the swap is
         serialized with engine steps. Returns the number of Executables
         updated."""
-        ent = self._models[model]          # KeyError for unknown models
-        try:
-            validate_params_like(ent.params, params)
-        except ValueError as err:
-            raise ValueError(
-                f"reload for model {model!r} rejected: {err}") from None
-        params = params_from_numpy(params, self.device)
-        touched = 0
-        for (m, _g), exe in self._executables.items():
-            if m == model:
-                exe.update_params(params)
-                touched += 1
-        ent.params = params
-        self._stats["reloads"] += 1
-        self._stats["logits_invalidations"] += touched
-        return touched
+        with obs.span("engine.reload_params"):
+            ent = self._models[model]          # KeyError for unknown models
+            try:
+                validate_params_like(ent.params, params)
+            except ValueError as err:
+                raise ValueError(
+                    f"reload for model {model!r} rejected: {err}") from None
+            params = params_from_numpy(params, self.device)
+            touched = 0
+            for (m, _g), exe in self._executables.items():
+                if m == model:
+                    exe.update_params(params)
+                    touched += 1
+            ent.params = params
+            self._stats["reloads"] += 1
+            self._stats["logits_invalidations"] += touched
+            return touched
 
     # -- streaming mutation path -------------------------------------------
 
@@ -442,37 +443,38 @@ class GNNServeEngine:
         Executable). Results match ``payloads`` positionally; a request
         whose node ids went stale between admission and dispatch yields
         its ValueError positionally, failing that ticket alone."""
-        model, graph = key
-        exe = self.executable(model, graph)
-        checked: list[np.ndarray | Exception] = []
-        for r in payloads:
-            try:
-                checked.append(exe._check_node_ids(r.node_ids))
-            except ValueError as err:
-                checked.append(err)
-        id_batches = [ids for ids in checked
-                      if not isinstance(ids, Exception)]
-        # a mutation-staled row counts as the batch's one miss: it forces
-        # the same full recompute as a cold cache
-        fresh = exe.has_cached_probs and all(
-            exe.probs_fresh_for(ids) for ids in id_batches)
-        miss = 0 if fresh or not id_batches else 1
-        self._stats["logits_cache_misses"] += miss
-        self._stats["logits_cache_hits"] += len(id_batches) - miss
-        answers = iter(exe.step(id_batches))
-        out: list = []
-        for ids in checked:
-            if isinstance(ids, Exception):
-                out.append(ids)
-                continue
-            classes, probs, ms = next(answers)
-            out.append(Prediction(
-                graph=graph, model=model, node_ids=ids, classes=classes,
-                probs=probs, engine_ms=ms, latency_ms=ms))
-            self._stats["requests"] += 1
-            self._stats["nodes_served"] += int(ids.size)
-        self._stats["batches"] += 1
-        return out
+        with obs.span("engine.step"):
+            model, graph = key
+            exe = self.executable(model, graph)
+            checked: list[np.ndarray | Exception] = []
+            for r in payloads:
+                try:
+                    checked.append(exe._check_node_ids(r.node_ids))
+                except ValueError as err:
+                    checked.append(err)
+            id_batches = [ids for ids in checked
+                          if not isinstance(ids, Exception)]
+            # a mutation-staled row counts as the batch's one miss: it forces
+            # the same full recompute as a cold cache
+            fresh = exe.has_cached_probs and all(
+                exe.probs_fresh_for(ids) for ids in id_batches)
+            miss = 0 if fresh or not id_batches else 1
+            self._stats["logits_cache_misses"] += miss
+            self._stats["logits_cache_hits"] += len(id_batches) - miss
+            answers = iter(exe.step(id_batches))
+            out: list = []
+            for ids in checked:
+                if isinstance(ids, Exception):
+                    out.append(ids)
+                    continue
+                classes, probs, ms = next(answers)
+                out.append(Prediction(
+                    graph=graph, model=model, node_ids=ids, classes=classes,
+                    probs=probs, engine_ms=ms, latency_ms=ms))
+                self._stats["requests"] += 1
+                self._stats["nodes_served"] += int(ids.size)
+            self._stats["batches"] += 1
+            return out
 
     # -- synchronous batch core --------------------------------------------
 
