@@ -39,10 +39,11 @@ where the reference's hashes (shard_n, per-layer (B, fused)); with the
 reference's digest the tuner would time one program once per B.
 
 The rules, their messages and ``BACKEND_SCRATCH_BYTES`` are the
-reference's. The fused CUDA kernel stages only a tile of W in shared
-memory, whatever n and B are (``kernels/csrc/fused_gnn.cu``), so the
-``cuda`` backend has no entry there and falls back to the plan's
-platform budget, as any unlisted backend does.
+reference's. The fused CUDA kernel stages only a tile of h and W in
+shared memory, whatever n and B are (``kernels/csrc/fused_gnn.cu``; its
+projected rows go to a device-memory workspace), so the ``cuda`` backend
+has no entry there and falls back to the plan's platform budget, as any
+unlisted backend does.
 """
 from __future__ import annotations
 

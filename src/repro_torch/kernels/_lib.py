@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # "p" a pointer (tensor or None), "i" a C int, "f" a C float
 KERNELS = {
     "shard_spmm": "ppppppiiiiii",
-    "fused_gnn": "pppppppiiiiiii",
+    "fused_gnn": "ppppppppiiiiiiii",
     "dense_engine": "pppppiiii",
     "seg_gather": "ppppiiiii",
     "flash_attention": "ppppiiiiiifiii",

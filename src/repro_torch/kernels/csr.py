@@ -87,8 +87,9 @@ def gather_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                        src=src[order].to(torch.int32))
 
 
-# rows of more entries than this are hubs: the shard_spmm and fused_gnn
-# kernels give each a block of its own instead of one warp
+# rows of more entries than this are hubs: the shard_spmm kernel gives
+# each a block of its own, the fused_gnn kernel a warp (a block for the
+# longest), instead of a few lanes
 HUB_ENTRIES = 32
 
 
@@ -97,8 +98,10 @@ class LinearIndex:
     """The nonzeros of (S_dst, S_src, n, n) blocks, sorted by destination
     (CSR). Global destination row r = i·n + v holds A[i, j, v, u] =
     ``val[k]`` at global source row ``col[k]`` = j·n + u for k in
-    [row_ptr[r], row_ptr[r + 1]), in (j, u) order. ``hubs`` lists, in
-    order, exactly the rows of more than ``HUB_ENTRIES`` entries."""
+    [row_ptr[r], row_ptr[r + 1]), in (j, u) order. ``hubs`` lists
+    exactly the rows of more than ``HUB_ENTRIES`` entries, longest first
+    (ties by row), so a kernel that hands them out in turn starts the
+    longest first."""
 
     row_ptr: torch.Tensor   # (S_dst·n + 1,) int32
     col: torch.Tensor       # (nnz,) int32
@@ -117,12 +120,14 @@ def linear_index(blocks: torch.Tensor) -> LinearIndex:
     val = blocks[ii, jj, vv, uu].float()
     dst, order = torch.sort(ii * n + vv, stable=True)
     row_ptr = _row_ptr(dst, s_dst * n)
-    hubs = ((row_ptr[1:] - row_ptr[:-1]) > HUB_ENTRIES).nonzero()
+    counts = row_ptr[1:] - row_ptr[:-1]
+    hubs = (counts > HUB_ENTRIES).nonzero().reshape(-1)
+    hubs = hubs[torch.sort(counts[hubs], descending=True, stable=True)[1]]
     _count("linear")
     return LinearIndex(row_ptr=row_ptr,
                        col=(jj * n + uu)[order].to(torch.int32),
                        val=val[order].contiguous(),
-                       hubs=hubs.reshape(-1).to(torch.int32))
+                       hubs=hubs.to(torch.int32))
 
 
 def entry_rows(index: LinearIndex) -> torch.Tensor:

@@ -1,5 +1,6 @@
-// The destination-row walk over csr.linear_index that shard_spmm and
-// fused_gnn share (float32, sm_90a).
+// The destination-row walk over csr.linear_index of shard_spmm (float32,
+// sm_90a); fused_gnn takes only the block shape and row_span from here
+// (its walk is 4 lanes a row chunk at every width, csrc/fused_gnn.cu).
 //
 // L lanes own one destination row (L = 32 for D > 128, 8 for D <= 128, 4
 // for D <= 16, so small D packs several rows into a warp), each lane up
@@ -8,14 +9,6 @@
 // time (4, or 8 at D <= 16): INF rows of h in flight, and the next INF
 // index entries loading while they are applied, so a round costs one
 // load latency. The sum runs in entry order, that is (j, u).
-//
-// Only the walk is shared. The epilogues differ in their control flow:
-// fused_gnn stages a W chunk in shared memory behind block-wide barriers
-// before every D chunk and reduces the products over the row's lanes
-// with full-warp shuffles (so every lane of a block walks in lock step);
-// shard_spmm stores the aggregate straight from the registers and needs
-// neither. A row loop with the epilogue as a template parameter would
-// have to carry both sets of hooks; each kernel keeps its own.
 #pragma once
 
 #include <cuda_runtime.h>

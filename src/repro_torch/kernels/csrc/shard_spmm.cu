@@ -13,21 +13,21 @@
 // the 40 MB of h fit in the 50 MB L2. The 2 nnz D float32 FMA operations
 // take a tenth of the bytes' time.
 //
-// Design: csr_walk.cuh's row walk, shared with fused_gnn, without the W
-// epilogue. L lanes own one destination row (L = 32 for D > 128, 8 for
-// D <= 128, 4 for D <= 16), each lane up to 16 of its columns in
-// registers, as float4 when D % 4 == 0 and h and out are 16-byte
-// aligned; the row's (col, val) entries are walked INF at a time with the
-// next INF loading meanwhile, and the aggregate is stored straight from
-// the registers: each output has one writer, no atomics, and its sum runs
-// in the fixed order (j, u). D above one chunk (L x 16 columns, 512 at
-// L = 32) is split into chunks that walk the row's entries again. Hub
-// rows (more than csr.HUB_ENTRIES = 32 entries, listed by linear_index;
-// Pubmed's longest has 314) would hold one warp for many rounds of loads:
-// the first blocks of the grid take one each, their 8 warps an eighth of
-// its entries apiece, and the eighths are added in shared memory in warp
-// order. A row with no nonzero gives 0. Destination rows (S_dst n) and
-// source rows (S_src n) are counted apart, so a rectangular grid needs
+// Design: csr_walk.cuh's row walk. L lanes own one destination row (L =
+// 32 for D > 128, 8 for D <= 128, 4 for D <= 16), each lane up to 16 of
+// its columns in registers, as float4 when D % 4 == 0 and h and out are
+// 16-byte aligned; the row's (col, val) entries are walked INF at a time
+// with the next INF loading meanwhile, and the aggregate is stored
+// straight from the registers: each output has one writer, no atomics,
+// and its sum runs in the fixed order (j, u). D above one chunk (L x 16
+// columns, 512 at L = 32) is split into chunks that walk the row's
+// entries again. Hub rows (more than csr.HUB_ENTRIES = 32 entries, listed
+// by linear_index, longest first; Pubmed's longest has 314) would hold
+// one warp for many rounds of loads: the first blocks of the grid take
+// one each, their 8 warps an eighth of its entries apiece, and the
+// eighths are added in shared memory in warp order. A row with no nonzero
+// gives 0. Destination rows (S_dst n) and source rows (S_src n) are
+// counted apart, so a rectangular grid needs
 // nothing else; a column outside h is skipped.
 #include <cuda_runtime.h>
 

@@ -1,16 +1,20 @@
-"""Fused Graph Engine -> Dense Engine layer: ``act((A · H) · W)``.
+"""Fused Graph Engine -> Dense Engine layer: ``act(A · H · W)``.
 
 The port of ``repro.kernels.fused_gnn.fused_gnn_layer``. The blocks'
 nonzeros are first listed by destination row (``csr.linear_index``,
 plain torch on the tensors' device, built once per graph by
 ``core.engines.GraphTensors``); the CUDA kernel ``csrc/fused_gnn.cu``
-then gathers each destination row's weighted source rows into
-registers, multiplies that aggregate by W from shared memory and writes
-the row once: the aggregate never reaches device memory. The index's hub
-rows get a block each. CPU tensors take the plain version in ``ref.py``;
-CUDA tensors launch the kernel or raise.
+then takes the product in the cheaper order and aggregates once, at the
+narrower width (:func:`route`): for D > F it projects first, Z = H · W
+into a workspace and then act(A · Z), and otherwise it gathers each
+destination row's D-wide aggregate and multiplies it by W on the chip.
+Both orders are one launch. CPU tensors take the plain version in
+``ref.py``, which keeps the reference's (A · H) · W; CUDA tensors launch
+the kernel or raise.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -18,6 +22,32 @@ from repro_torch.kernels import _lib, csr, ref
 from repro_torch.kernels.csr import LinearIndex, linear_index
 
 ACTIVATIONS = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
+
+PROJECT_FIRST, AGGREGATE_FIRST = "project_first", "aggregate_first"
+
+_lock = threading.Lock()
+_routes = dict.fromkeys((PROJECT_FIRST, AGGREGATE_FIRST), 0)
+
+
+def route(d: int, f: int) -> str:
+    """The kernel's order for a (D, F) layer, from the shape alone: the
+    aggregation runs at the narrower width, so D > F projects first,
+    act(A · (H · W)), and D <= F aggregates first, act((A · H) · W)."""
+    return PROJECT_FIRST if d > f else AGGREGATE_FIRST
+
+
+def routes() -> dict[str, int]:
+    """Kernel launches by order (``project_first``, ``aggregate_first``)
+    since the last :func:`reset_routes`; the plain CPU version counts
+    nothing."""
+    with _lock:
+        return dict(_routes)
+
+
+def reset_routes() -> None:
+    with _lock:
+        for k in _routes:
+            _routes[k] = 0
 
 
 def fused_gnn_layer(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
@@ -53,8 +83,17 @@ def fused_gnn_layer(blocks: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     csr.check_linear_index("fused_gnn", index, s * n)
     out = torch.empty((s, n, f), dtype=torch.float32, device=h.device)
     if out.numel():
+        order = route(d, f)
+        project = order == PROJECT_FIRST
+        # Z (rows, F rounded up to 4) when projecting first, then the
+        # kernel's two work counters, in 4 words
+        z = s * n * -(-f // 4) * 4 if project else 0
+        work = torch.empty(z + 4, dtype=torch.float32, device=h.device)
         _lib.launch("fused_gnn", index.row_ptr, index.col, index.val,
-                    index.hubs, h, w, out, s * n, d, f,
+                    index.hubs, h, w, out, work, s * n, d, f,
                     ACTIVATIONS[activation], index.col.numel(),
-                    index.hubs.numel(), csr.HUB_ENTRIES, device=h.device)
+                    index.hubs.numel(), csr.HUB_ENTRIES, int(project),
+                    device=h.device)
+        with _lock:
+            _routes[order] += 1
     return out

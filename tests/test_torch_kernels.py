@@ -161,6 +161,54 @@ def test_fused_gnn_ragged_d_matches_pallas_backend_padding(jx):
     np.testing.assert_allclose(out.numpy(), np.asarray(exp), **TOL)
 
 
+@pytest.mark.parametrize("d,f,order", [
+    (602, 16, t_fused.PROJECT_FIRST),    # reddit x0.1 layer 0
+    (500, 16, t_fused.PROJECT_FIRST),    # Pubmed layer 0
+    (16, 3, t_fused.PROJECT_FIRST),      # Pubmed layer 1
+    (17, 16, t_fused.PROJECT_FIRST),
+    (16, 41, t_fused.AGGREGATE_FIRST),   # reddit x0.1 layer 1
+    (3, 16, t_fused.AGGREGATE_FIRST),
+    (16, 16, t_fused.AGGREGATE_FIRST),   # D == F: the reference's order
+    (1, 1, t_fused.AGGREGATE_FIRST),
+])
+def test_fused_gnn_route_aggregates_at_the_narrower_width(d, f, order):
+    assert t_fused.route(d, f) == order
+
+
+def test_fused_gnn_routes_count_launches_by_order(monkeypatch):
+    """The wrapper's launch on a stand-in library: the order goes to the
+    kernel as its last integer, the workspace holds Z (rows x F rounded
+    up to 4) only when projecting first, and routes() counts each launch
+    by order from zero until reset. The plain CPU version counts
+    nothing."""
+    r = _rng(14)
+    a = _t((r.random((2, 2, 6, 6)) < 0.4).astype(np.float32))
+    t_fused.reset_routes()
+    assert t_fused.routes() == {t_fused.PROJECT_FIRST: 0,
+                                t_fused.AGGREGATE_FIRST: 0}
+    for d, f in ((7, 5), (5, 7)):
+        t_fused.fused_gnn_layer(a, _t(r.standard_normal((2, 6, d), np.float32)),
+                                _t(r.standard_normal((d, f), np.float32)))
+    assert t_fused.routes() == {t_fused.PROJECT_FIRST: 0,
+                                t_fused.AGGREGATE_FIRST: 0}
+    calls = []
+    monkeypatch.setattr(_lib, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_lib, "launch",
+                        lambda kernel, *args, device: calls.append(args))
+    for d, f in ((7, 5), (5, 7), (6, 6)):
+        out = t_fused.fused_gnn_layer(
+            a, _t(r.standard_normal((2, 6, d), np.float32)),
+            _t(r.standard_normal((d, f), np.float32)))
+        assert out.shape == (2, 6, f)
+    assert [c[-1] for c in calls] == [1, 0, 0]
+    assert [c[7].numel() for c in calls] == [12 * 8 + 4, 4, 4]
+    assert t_fused.routes() == {t_fused.PROJECT_FIRST: 1,
+                                t_fused.AGGREGATE_FIRST: 2}
+    t_fused.reset_routes()
+    assert t_fused.routes() == {t_fused.PROJECT_FIRST: 0,
+                                t_fused.AGGREGATE_FIRST: 0}
+
+
 @pytest.mark.parametrize("op", ["max", "sum"])
 @pytest.mark.parametrize("s,n,e,d,bb", [(2, 16, 24, 32, 16), (3, 8, 40, 16, 16)])
 def test_seg_gather_matches_pallas(jx, op, s, n, e, d, bb):
@@ -495,12 +543,13 @@ def test_cuda_fused_gnn_matches_plain(cuda, density):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("density", [0.2, 0.003])
-@pytest.mark.parametrize("d", [16, 150, 500, 600])
+@pytest.mark.parametrize("d", [3, 16, 150, 500, 600])
 def test_cuda_fused_gnn_kept_index_and_hub_match_plain(cuda, density, d):
-    """With the blocks' kept index and standalone, at D 16 (several rows
-    a warp), 150 (ragged: the scalar path), 500 (Pubmed) and 600 (two D
-    chunks), F 3, 16 and 77 (several F chunks), with empty rows (shard 0)
-    and a hub row with nonzeros in every source shard."""
+    """With the blocks' kept index and standalone, at D 3 and 16 (F 3
+    projects first at D 16, F 16 and 77 aggregate first, D 3 on the
+    scalar path), 150 (ragged), 500 (Pubmed) and 600, F 3, 16 and 77
+    (several 16-column chunks), with empty rows (shard 0) and a hub row
+    with nonzeros in every source shard."""
     r = _rng(30 + d)
     s, n = 3, 70
     a = _blocks(r, (s, s, n, n), density)
@@ -510,11 +559,12 @@ def test_cuda_fused_gnn_kept_index_and_hub_match_plain(cuda, density, d):
     index = t_fused.linear_index(a)
     counts = (index.row_ptr[1:] - index.row_ptr[:-1]).cpu()
     assert (counts[:n] == 0).all() and counts.max() >= 3 * 40
-    # rows of more than HUB_ENTRIES entries get a block each: the hub,
-    # and at density 0.2 most rows of shards 1 and 2
-    assert index.hubs.tolist() == torch.nonzero(
-        counts > csr.HUB_ENTRIES).reshape(-1).tolist()
-    assert n + 1 in index.hubs.tolist()
+    # rows of more than HUB_ENTRIES entries, longest first, get a warp
+    # each: the hub, and at density 0.2 most rows of shards 1 and 2
+    hubs = torch.nonzero(counts > csr.HUB_ENTRIES).reshape(-1)
+    assert index.hubs.tolist() == hubs[torch.sort(
+        counts[hubs], descending=True, stable=True)[1]].tolist()
+    assert index.hubs[0] == n + 1
     for f in (3, 16, 77):
         w = _t(r.standard_normal((d, f), np.float32)).to(cuda)
         plain = ref.fused_gnn(a, h, w, activation="relu")
@@ -547,6 +597,97 @@ def test_cuda_fused_gnn_reads_nothing_outside_a_bad_index(cuda):
     expect = torch.zeros_like(out)
     expect[0, 0] = 2.0 * h.reshape(-1, 8)[3]
     torch.testing.assert_close(out, expect, **TOL)
+
+
+def _power_law_blocks(r, s, n):
+    """(s, s, n, n) blocks on which nearly every row is a hub: row degrees
+    fall as rank^-0.8 over a random ranking, from s n - 100 down to a
+    floor of 40; one row in 20 keeps 3 entries, the last row none, and
+    row 0 the most (past the kernel's 2048 entries for one block a row
+    when s n > 2148). Each row's values are 1 / its degree."""
+    rows = s * n
+    deg = np.clip((rows - 100) / (r.permutation(rows) + 1.0) ** 0.8, 40,
+                  None).astype(int)
+    deg[r.random(rows) < 0.05] = 3
+    deg[-1] = 0
+    deg[0] = rows - 100
+    a = np.zeros((rows, rows), np.float32)
+    for row, k in enumerate(deg):
+        a[row, r.choice(rows, size=k, replace=False)] = 1.0 / max(k, 1)
+    return a.reshape(s, n, s, n).transpose(0, 2, 1, 3)   # [i, j, v, u]
+
+
+def _fused_kernels(fn):
+    """Device operations named fused_gnn while ``fn`` runs, by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "fused_gnn" in e.key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(602, 16), (16, 41), (3, 16), (16, 3)])
+def test_cuda_fused_gnn_power_law_hubs_match_plain(cuda, d, f):
+    """reddit x0.1's layers (602 -> 16 projects first, 16 -> 41
+    aggregates first) and the orders' edge (3 -> 16, 16 -> 3) on a
+    6 x 6 grid of 512-row shards where nearly every row is a hub and one
+    holds 2,972 entries. Each call is one launch, one fused_gnn kernel on
+    the device and one count of its order; two calls give the same
+    bits."""
+    r = _rng(50 + d + f)
+    a = _t(_power_law_blocks(r, 6, 512)).to(cuda)
+    h = _t(r.standard_normal((6, 512, d), np.float32)).to(cuda)
+    w = _t((r.standard_normal((d, f)) / np.sqrt(d)).astype(np.float32)).to(
+        cuda)
+    index = csr.linear_index(a)
+    counts = (index.row_ptr[1:] - index.row_ptr[:-1]).cpu()
+    assert (counts > csr.HUB_ENTRIES).float().mean() > 0.9
+    assert counts.max() > 2048 and counts[-1] == 0
+
+    def layer():
+        return t_fused.fused_gnn_layer(a, h, w, activation="relu",
+                                       index=index)
+
+    t_fused.reset_routes()
+    out = _counted("fused_gnn", layer)
+    other = ({t_fused.PROJECT_FIRST, t_fused.AGGREGATE_FIRST}
+             - {t_fused.route(d, f)}).pop()
+    assert t_fused.routes() == {t_fused.route(d, f): 1, other: 0}
+    torch.testing.assert_close(out, ref.fused_gnn(a, h, w, activation="relu"),
+                               **TOL)
+    assert torch.equal(_counted("fused_gnn", layer), out)
+    assert _fused_kernels(layer) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_gcn_forward_routes_each_layer(cuda):
+    """One gcn forward at reddit's widths (602 -> 16 -> 41) on a small
+    reddit-profile graph (931 nodes, nearly every row a hub): two
+    fused_gnn launches, layer 0 projecting first and layer 1 aggregating
+    first."""
+    from repro_torch import runtime
+    from repro_torch.gnn.models import ZooSpec
+    from repro_torch.graphs.datasets import make_dataset
+
+    ds = make_dataset("reddit", seed=0, scale=0.004)
+    exe = runtime.compile(ZooSpec("gcn", 602, 16, 41, num_layers=2), ds,
+                          device=cuda, backend="cuda", max_shard_n=512)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t_fused.reset_routes()
+    logits = exe.forward()
+    torch.cuda.synchronize()
+    assert logits.shape == (931, 41) and bool(torch.isfinite(logits).all())
+    assert {k: v for k, v in _lib.launches().items() if v} == {"fused_gnn": 2}
+    assert t_fused.routes() == {t_fused.PROJECT_FIRST: 1,
+                                t_fused.AGGREGATE_FIRST: 1}
 
 
 @pytest.mark.cuda

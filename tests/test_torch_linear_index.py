@@ -64,8 +64,9 @@ def test_linear_index_rebuilds_the_blocks(s, n, density):
     np.testing.assert_array_equal(_rebuild(index, s, n).numpy(), a)
     counts = (index.row_ptr[1:] - index.row_ptr[:-1]).numpy()
     assert index.hubs.dtype == torch.int32
+    hubs = np.nonzero(counts > csr.HUB_ENTRIES)[0]
     np.testing.assert_array_equal(
-        index.hubs.numpy(), np.nonzero(counts > csr.HUB_ENTRIES)[0])
+        index.hubs.numpy(), hubs[np.argsort(-counts[hubs], kind="stable")])
     # (j, u) order in a row is increasing j·n + u
     for r0, r1 in zip(index.row_ptr[:-1].tolist(), index.row_ptr[1:].tolist()):
         cols = index.col[r0:r1]
@@ -89,14 +90,16 @@ def test_linear_index_covers_empty_and_hub_rows():
 
 
 def test_linear_index_lists_the_hub_rows():
-    """Rows of more than HUB_ENTRIES entries, and only those, in order."""
+    """Rows of more than HUB_ENTRIES entries, and only those, longest
+    first, rows of one length in row order."""
     s, n = 2, 40
     a = np.zeros((s, s, n, n), np.float32)
     a[1, :, 3, :] = 1.0                      # 80 entries: a hub
     a[0, 0, 7, : csr.HUB_ENTRIES] = 2.0      # exactly the limit: not one
     a[0, :, 9, :20] = 3.0                    # 40 entries: a hub
+    a[0, :, 11, 20:] = 4.0                   # 40 entries: a hub
     index = csr.linear_index(_t(a))
-    assert index.hubs.tolist() == [9, n + 3]
+    assert index.hubs.tolist() == [n + 3, 9, 11]
 
 
 def test_linear_index_of_all_zero_blocks_is_empty():
