@@ -8,6 +8,7 @@ import sys
 import numpy as np
 
 from gnnbench.harness import peaks as peaks_mod
+from gnnbench.harness import spans as spans_mod
 from gnnbench.harness import spec
 from gnnbench.harness.check import Checker, verdict
 from gnnbench.harness.drive import Driver
@@ -25,7 +26,7 @@ def forbidden_modules() -> list[str]:
 
 def breakdown(run) -> dict:
     """The device operations that took most time and the longest idle
-    gaps, each named by what the driver was doing over most of it."""
+    gaps, each named by what the host was doing over most of it."""
     tr = run.trace
     ops = [[name[:120], secs] for name, secs in tr.time_by_name()[:10]]
     gaps = tr.gaps()
@@ -50,6 +51,13 @@ def _covered(starts, ends, a: float, b: float) -> float:
 
 
 def host_activity(run, a: float, b: float) -> str:
+    """The program span whose self time covers most of [a, b], on any
+    thread (``program <thread>: <span>``), else what the closed loop's
+    records say (:func:`loop_activity`)."""
+    return spans_mod.gap_name(run, a, b) or loop_activity(run, a, b)
+
+
+def loop_activity(run, a: float, b: float) -> str:
     """What the driver's spans covered most of [a, b] (the first named
     on a tie): weight pushes, refresh requests (submitted, not yet seen
     answered), or neither."""

@@ -3,8 +3,9 @@
 A sample of the window's refreshes, drawn from the seed, is held to the
 configuration's plain reference, worked out again from the generated
 edges and the weights the driver pushed, on the weights each refresh
-was due to see; a refresh answers every node. An answer is a node's
-class and that class's probability; its error is
+was due to see; a refresh answers every node. The reference gets each
+layer's parameters whole, every tensor its ``param_shapes`` declares.
+An answer is a node's class and that class's probability; its error is
 
     max(|p_served − p_ref[c_served]|, p_ref_max − p_ref[c_served]) / p_ref_max
 
@@ -54,8 +55,7 @@ class Checker:
         self.graph = graph
         self.device = device
         self.control = control
-        self.weights = [[layer["w"] for layer in tree["layers"]]
-                        for tree in weights]
+        self.weights = [tree["layers"] for tree in weights]
 
     def _probs(self, edges: np.ndarray, weight_set: int):
         import torch

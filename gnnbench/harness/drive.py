@@ -8,15 +8,23 @@ configuration file. The load is a closed loop of one client
 (``refresh``): each iteration pushes the next weight set through
 ``Server.reload``, then asks for every node in one request and waits
 for it.
+
+A ``--trace 1`` run switches the program's span recorder
+(``repro_torch.obs``) on just before the profiler starts and off once it
+has stopped, and keeps what it recorded in ``Run.spans``; a ``--trace 0``
+run never switches it on. The profiler traces the device over the window
+of every ``--trace 1`` run, and of a ``--trace 0`` run of a cell that
+reads an end-to-end metric from the device trace (``kernel_ms``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
 
-from gnnbench.harness import gen
+from gnnbench.harness import gen, spans
 from gnnbench.harness.trace import Tracer
 
 MODEL = "m"
@@ -29,6 +37,8 @@ WARM_REFRESHES = 4
 # the closed loop's answers held to the reference: a sample of this many
 # refreshes, drawn from the seed
 SAMPLED_REFRESHES = 16
+# the scale of a rank-0 parameter's standard normal draw (gin's ε)
+SCALAR_SCALE = 0.1
 
 
 @dataclasses.dataclass
@@ -60,6 +70,7 @@ class Run:
     engine: tuple = (None, None)     # GNNServeEngine.stats at open, close
     launches: tuple = (None, None)   # kernels' launch counts at open, close
     trace: object = None
+    spans: object = None         # spans.Spans of a traced run's recorder
     peaks: object = None
     memory_peak_bytes: int = 0
     # set-up's steps: (step, seconds since the process started) at its end
@@ -83,23 +94,35 @@ def graph_nnz(edges: np.ndarray, num_nodes: int) -> int:
                - np.isin(loops, keys, assume_unique=True).sum())
 
 
-def make_weights(dims: list[int], sets: int, seed: int, device) -> list:
-    """``sets`` GCN weight trees {"layers": [{"w": (d, f)}]}, Glorot
-    normal, drawn on ``device`` from ``seed`` in one call."""
+def make_weights(shapes: list[dict], sets: int, seed: int, device) -> list:
+    """``sets`` parameter trees {"layers": [{key: tensor}]} of the tensors
+    ``shapes`` declares (the reference's ``param_shapes``: for each layer,
+    key -> shape, in draw order), drawn on ``device`` from ``seed`` in one
+    call and cut in that order. A tensor of rank 1 or more is Glorot
+    normal, scaled by (2 / (shape[0] + shape[-1])) ** 0.5 (a bias of F
+    entries by (1 / F) ** 0.5); a rank-0 tensor (gin's ε) by
+    :data:`SCALAR_SCALE`. Biases and ε are drawn like the rest, so none is
+    zero."""
     import torch
 
     gen_ = torch.Generator(device=device)
     gen_.manual_seed(seed % 2 ** 64)
-    shapes = list(zip(dims[:-1], dims[1:]))
-    per_set = sum(d * f for d, f in shapes)
+    per_set = sum(math.prod(shape) for layer in shapes
+                  for shape in layer.values())
     flat = torch.randn(sets * per_set, generator=gen_, device=device)
     trees, off = [], 0
     for _ in range(sets):
         layers = []
-        for d, f in shapes:
-            w = flat[off:off + d * f].view(d, f) * (2.0 / (d + f)) ** 0.5
-            layers.append({"w": w.contiguous()})
-            off += d * f
+        for layer in shapes:
+            tensors = {}
+            for key, shape in layer.items():
+                size = math.prod(shape)
+                scale = ((2.0 / (shape[0] + shape[-1])) ** 0.5 if shape
+                         else SCALAR_SCALE)
+                tensors[key] = (flat[off:off + size].view(shape)
+                                * scale).contiguous()
+                off += size
+            layers.append(tensors)
         trees.append({"layers": layers})
     return trees
 
@@ -118,11 +141,15 @@ class Driver:
         self.seconds = float(seconds)
         self.device = device
         self.tracing = trace
+        self.traces_window = trace or (Tracer.can_trace(device) and any(
+            m.entry["source"] == "device_trace"
+            for m in cell.metrics_of("end_to_end")))
         self.t_process = t_process
         cfg = cell.config
         self.dims = ([cfg["feature_dim"]]
                      + [cfg["hidden_dim"]] * (cfg["num_layers"] - 1)
                      + [cfg["num_classes"]])
+        self.shapes = cell.reference.param_shapes(self.dims, cfg)
         self.traffic = cell.traffic
         self.graph = None
         self.mark = lambda name: None
@@ -131,9 +158,13 @@ class Driver:
     # -- set-up ----------------------------------------------------------
 
     def build_graph(self) -> None:
+        """The configuration's graph (drawn from ``gen.GRAPH_SEED``), its
+        nodes in an order drawn from the run's seed."""
         cfg = self.cell.config
-        self.graph = gen.make_graph(cfg["dataset"], seed=self.seed,
-                                    scale=cfg["scale"])
+        graph = gen.make_graph(cfg["dataset"], seed=gen.GRAPH_SEED,
+                               scale=cfg["scale"])
+        order = np.random.default_rng([self.seed, 3])
+        self.graph = gen.relabel(graph, order.permutation(graph.num_nodes))
         if (self.graph.num_nodes, self.graph.num_edges) != \
                 (cfg["num_nodes"], cfg["num_edges"]):
             raise ValueError(
@@ -150,7 +181,8 @@ class Driver:
 
         cfg, tr, g = self.cell.config, self.traffic, self.graph
         sets = tr.get("refresh", {}).get("weight_sets", 1)
-        self.weights = make_weights(self.dims, sets, self.seed, self.device)
+        self.weights = make_weights(self.shapes, sets, self.seed,
+                                    self.device)
         engine = GNNServeEngine(device=self.device, backend="cuda",
                                 max_shard_n=cfg["max_shard_n"],
                                 **tr.get("engine", {}))
@@ -159,9 +191,10 @@ class Driver:
         engine.register_graph(GRAPH, GraphData(
             profile, g.edges.copy(), g.features.copy(), g.labels.copy(),
             g.train_mask.copy()))
+        stated = {k: cfg[k] for k in ("heads", "negative_slope") if k in cfg}
         engine.register_model(MODEL, ZooSpec(
             cfg["arch"], in_dim=self.dims[0], hidden_dim=cfg["hidden_dim"],
-            out_dim=self.dims[-1], num_layers=cfg["num_layers"]),
+            out_dim=self.dims[-1], num_layers=cfg["num_layers"], **stated),
             params=self.weights[0])
         server = Server(engine, SchedulerConfig(**tr.get("server", {})))
         return server.start()
@@ -192,18 +225,28 @@ class Driver:
             self._refresh(server, run, warm=True)
             self._sync()
             step("warmed up")
+            # set-up is the program's: the profiler's start (about 3 s)
+            # is the benchmark's own and falls outside it
+            run.setup_s = time.perf_counter() - self.t_process
             run.engine = (server.engine.stats, None)
             run.launches = (_lib.launches(), None)
-            tracer = Tracer() if self.tracing else None
+            tracer = Tracer() if self.traces_window else None
+            recorder = spans.recorder() if self.tracing else None
+            if recorder is not None:
+                recorder.enable()
             if tracer:
                 tracer.start()
             run.t_open = time.perf_counter()
-            run.setup_s = run.t_open - self.t_process
             self._refresh(server, run, warm=False)
             self._sync()
             run.t_close = time.perf_counter()
             if tracer:
-                run.trace = tracer.stop()
+                try:
+                    run.trace = tracer.stop()
+                finally:
+                    if recorder is not None:
+                        recorder.disable()
+                        run.spans = spans.Spans(*recorder.drain())
             run.engine = (run.engine[0], server.engine.stats)
             run.launches = (run.launches[0], _lib.launches())
         finally:

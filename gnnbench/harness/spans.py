@@ -1,21 +1,15 @@
 """The program's own spans in a traced run, and the reductions the
-per-layer metrics read of them.
+per-layer metrics and the breakdown read of them.
 
 The program records spans with ``repro_torch.obs`` (each
 ``(name, thread, t0, t1)`` on the ``time.perf_counter`` clock the device
-trace is moved onto). :func:`install` makes a ``--trace 1`` run switch
-the recorder on just before the profiler starts and, once the profiler
-has stopped, switch it off and keep what it recorded on the trace
-(``run.trace.spans``, a :class:`Spans`). It also makes the breakdown
-name each idle gap of the device by the program span whose self time
-covers most of it, on any thread, falling back to the closed loop's own
-records (pushes and requests) where no program span covers it. A ``--trace 0`` run never
-imports the recorder. Where the program has none (an older program), the
-trace keeps no spans, the readers here return None and the gaps are
-named by the closed loop's records alone.
-
-The readers of the metrics that read spans call :func:`install` when
-they are loaded, which is before the run starts.
+trace is moved onto). The driver switches the recorder on just before
+the profiler starts in every ``--trace 1`` run and, once the profiler has
+stopped, switches it off and keeps what it recorded in ``run.spans`` (a
+:class:`Spans`), whatever readers the cell lists. A ``--trace 0`` run
+never switches it on. Where the program has no recorder, ``run.spans``
+stays None, the readers here return None and the breakdown names idle
+gaps by the closed loop's records alone.
 """
 from __future__ import annotations
 
@@ -24,8 +18,6 @@ import dataclasses
 import functools
 
 import numpy as np
-
-from gnnbench.harness import cell, trace
 
 
 @dataclasses.dataclass
@@ -81,7 +73,7 @@ def self_intervals(records) -> list[tuple]:
     return out
 
 
-def _recorder():
+def recorder():
     """The program's recorder, or None where the program has none."""
     try:
         from repro_torch import obs
@@ -90,61 +82,12 @@ def _recorder():
     return obs
 
 
-# -- the hooks a traced run goes through ------------------------------------
-
-_plain_start = _plain_stop = _loop_activity = None
-
-
-def _start(tracer) -> None:
-    obs = _recorder()
-    if obs is not None:
-        obs.enable()
-    _plain_start(tracer)
-
-
-def _stop(tracer):
-    obs = _recorder()
-    try:
-        tr = _plain_stop(tracer)
-    finally:
-        if obs is not None:
-            obs.disable()
-    if obs is not None:
-        tr.spans = Spans(*obs.drain())
-    return tr
-
-
-def host_activity(run, a: float, b: float) -> str:
-    """The program span whose self time covers most of [a, b]
-    (``program <thread>: <span>``), else what the closed loop's records
-    say (``cell.host_activity`` as the harness has it)."""
-    return gap_name(run, a, b) or _loop_activity(run, a, b)
-
-
-def install() -> None:
-    """Route a traced run's profiler start and stop through the recorder,
-    and the breakdown's naming of gaps through :func:`host_activity`.
-    Idempotent."""
-    global _plain_start, _plain_stop, _loop_activity
-    if _plain_start is not None:
-        return
-    _plain_start, _plain_stop = trace.Tracer.start, trace.Tracer.stop
-    _loop_activity = cell.host_activity
-    trace.Tracer.start, trace.Tracer.stop = _start, _stop
-    cell.host_activity = host_activity
-
-
 # -- reductions ---------------------------------------------------------------
-
-def spans_of(run) -> Spans | None:
-    tr = run.trace
-    return None if tr is None else getattr(tr, "spans", None)
-
 
 def window(run) -> list[tuple] | None:
     """The run's records clipped to its window; None where the program
     recorded none or some were dropped."""
-    sp = spans_of(run)
+    sp = run.spans
     if sp is None or sp.dropped:
         return None
     a, b = run.t_open, run.t_close
@@ -214,7 +157,7 @@ def untraced_idle(run) -> float | None:
 def gap_name(run, a: float, b: float) -> str | None:
     """``program <thread>: <span>`` for the span whose self time covers
     most of [a, b], None where no program span covers any of it."""
-    sp = spans_of(run)
+    sp = run.spans
     if sp is None:
         return None
     labels, idx, lo, hi = sp.pieces

@@ -5,7 +5,9 @@ cell, configuration, traffic mix or metric is added by adding files and
 entries, never by editing one:
 
 - a configuration: the ``file`` its entry names (``configs/<name>.json``),
-  whose ``arch`` names its plain reference ``reference/<arch>.py``;
+  whose ``arch`` names its plain reference ``reference/<arch>.py`` (which
+  declares the parameters the driver draws) and its counts
+  ``counts/<arch>.py`` (loaded by path by the metrics that read them);
 - a traffic mix: ``traffic/<traffic>.json``;
 - a cell's limits for the comparison that decides ``correct``:
   ``limits/<workload>.json``;

@@ -27,6 +27,7 @@ class DeviceTrace:
     dur: np.ndarray             # (ops,) s
     t0: float                   # the traced window, perf_counter clock
     t1: float
+    cats: list[str] | None = None   # per operation: kernel, gpu_memcpy, ...
 
     @property
     def window_s(self) -> float:
@@ -75,6 +76,13 @@ class DeviceTrace:
         order = idx[np.argsort(self.start[idx])]
         return self.start[order], self.dur[order]
 
+    def kernel_s(self) -> float:
+        """Device seconds of the kernels alone: no copy, no memset."""
+        if self.cats is None:
+            return 0.0
+        return float(sum(d for c, d in zip(self.cats, self.dur)
+                         if c == "kernel"))
+
     def time_by_name(self) -> list[tuple[str, float]]:
         """Device seconds summed by operation name, largest first."""
         total: dict[str, float] = {}
@@ -89,6 +97,12 @@ class Tracer:
     def __init__(self):
         self._prof = None
         self._t0 = self._offset = 0.0
+
+    @staticmethod
+    def can_trace(device: str) -> bool:
+        """Whether a run on ``device`` has a device to trace: a run on
+        the CPU has none."""
+        return device != "cpu"
 
     def start(self) -> None:
         import torch
@@ -122,12 +136,13 @@ def parse(doc: dict, offset: float, t0: float, t1: float) -> DeviceTrace:
     """The device operations of a chrome trace ``doc``; ``offset`` is the
     wall clock less the perf_counter clock."""
     base_ns = float(doc.get("baseTimeNanoseconds", 0))
-    names, start, dur = [], [], []
+    names, cats, start, dur = [], [], [], []
     for ev in doc.get("traceEvents", []):
         if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_CATEGORIES:
             continue
         names.append(ev["name"])
+        cats.append(ev["cat"])
         start.append((base_ns + float(ev["ts"]) * 1e3) / 1e9 - offset)
         dur.append(float(ev.get("dur", 0.0)) / 1e6)
     return DeviceTrace(names, np.asarray(start, dtype=np.float64),
-                       np.asarray(dur, dtype=np.float64), t0, t1)
+                       np.asarray(dur, dtype=np.float64), t0, t1, cats)

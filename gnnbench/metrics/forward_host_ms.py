@@ -4,8 +4,6 @@ device), in ms: the program's ``runtime.forward`` spans in the traced
 window over the refreshes completed in it."""
 from gnnbench.harness import spans
 
-spans.install()
-
 
 def read(run):
     return spans.per_refresh_ms(run, "runtime.forward")

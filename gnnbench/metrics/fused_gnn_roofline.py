@@ -3,7 +3,9 @@ window's ``fused_gnn`` launches, in %. Each forward of the two-layer GCN
 launches the kernel once a layer, layer 0 first; a launch's bound is its
 layer's (``counts/gcn.py``) at the chip's peaks. The trace's launches
 must be the window's launches as the kernel library counted them, two a
-forward (a cache miss); otherwise nothing is read."""
+forward (a cache miss); otherwise nothing is read. The metric is gcn's:
+only gcn's forward launches ``fused_gnn``, so its bound is always
+``counts/gcn.py``'s, and only gcn cells belong in its ``workloads``."""
 from gnnbench.counts import gcn
 
 

@@ -4,8 +4,6 @@ wake-up and the batch's formation), in ms: the program's ``server.queue``
 spans in the traced window over the refreshes completed in it."""
 from gnnbench.harness import spans
 
-spans.install()
-
 
 def read(run):
     return spans.per_refresh_ms(run, "server.queue")

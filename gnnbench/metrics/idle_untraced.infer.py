@@ -5,8 +5,6 @@ loop, the server thread's idle polls, whatever runs outside the
 program)."""
 from gnnbench.harness import spans
 
-spans.install()
-
 
 def read(run):
     return spans.untraced_idle(run)

@@ -5,8 +5,6 @@ and the request's answer from it, gather, argmax and max
 refreshes completed in it."""
 from gnnbench.harness import spans
 
-spans.install()
-
 
 def read(run):
     return spans.per_refresh_ms(run, "runtime.softmax", "runtime.answer")

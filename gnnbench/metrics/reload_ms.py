@@ -4,8 +4,6 @@ step lock, then ``GNNServeEngine.reload_params``) over the refreshes
 completed in it."""
 from gnnbench.harness import spans
 
-spans.install()
-
 
 def read(run):
     return spans.per_refresh_ms(run, "server.reload")

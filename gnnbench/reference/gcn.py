@@ -20,6 +20,12 @@ import numpy as np
 import torch
 
 
+def param_shapes(dims: list[int], config: dict) -> list[dict[str, tuple]]:
+    """Each layer's tensors, in draw order: W (D_in, D_out) for each pair
+    of widths ``dims`` (input, hidden..., classes)."""
+    return [{"w": (d, f)} for d, f in zip(dims[:-1], dims[1:])]
+
+
 def adjacency(edges: np.ndarray, num_nodes: int,
               device: torch.device | str) -> torch.Tensor:
     """Â (N, N) as a float32 sparse CSR tensor: A[v, u] sums the weights
@@ -40,25 +46,25 @@ def adjacency(edges: np.ndarray, num_nodes: int,
         return a.to_sparse_csr()
 
 
-def logits(a: torch.Tensor, features: torch.Tensor, weights: list,
+def logits(a: torch.Tensor, features: torch.Tensor, layers: list,
            *, tf32: bool = False) -> torch.Tensor:
-    """(N, C) float32 logits of the GCN with ``weights`` [(D_in, D_out)]
-    over Â ``a`` and (N, F) ``features``."""
+    """(N, C) float32 logits of the GCN with ``layers`` [{"w": (D_in,
+    D_out)}] over Â ``a`` and (N, F) ``features``."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         h = features.float()
-        for i, w in enumerate(weights):
-            h = torch.sparse.mm(a, h) @ w.float()
-            if i < len(weights) - 1:
+        for i, layer in enumerate(layers):
+            h = torch.sparse.mm(a, h) @ layer["w"].float()
+            if i < len(layers) - 1:
                 h = torch.relu(h)
         return h
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def probs(a: torch.Tensor, features: torch.Tensor, weights: list,
+def probs(a: torch.Tensor, features: torch.Tensor, layers: list,
           *, tf32: bool = False) -> torch.Tensor:
     """(N, C) float64 class probabilities."""
-    return torch.softmax(logits(a, features, weights, tf32=tf32).double(),
+    return torch.softmax(logits(a, features, layers, tf32=tf32).double(),
                          dim=-1)

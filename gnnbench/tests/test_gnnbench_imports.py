@@ -1,6 +1,7 @@
 """No module of the benchmark loads JAX, the JAX package ``repro`` or
 its ``benchmarks/``, and the plain references load nothing of the
-program either. Top-level module names are compared whole:
+program either; the same holds for the architecture the tests add as
+files (``tests/gin/``). Top-level module names are compared whole:
 ``repro_torch`` begins with ``repro`` and is another package."""
 import ast
 import pathlib
@@ -10,7 +11,11 @@ import pytest
 from gnnbench.harness.cell import FORBIDDEN, forbidden_modules
 
 BASE = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = sorted(p for p in BASE.rglob("*.py") if "tests" not in p.parts)
+ADDED = BASE / "tests" / "gin"
+SOURCES = sorted(p for p in BASE.rglob("*.py") if "tests" not in p.parts) \
+    + sorted(ADDED.rglob("*.py"))
+REFERENCES = sorted((BASE / "reference").glob("*.py")) \
+    + sorted((ADDED / "reference").glob("*.py"))
 
 
 def imported(path: pathlib.Path) -> set[str]:
@@ -39,8 +44,8 @@ def test_no_jax_or_reference_package(path):
     assert not imported(path) & set(FORBIDDEN), path
 
 
-@pytest.mark.parametrize("path", sorted((BASE / "reference").glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", REFERENCES,
+                         ids=lambda p: str(p.relative_to(BASE)))
 def test_references_import_nothing_of_the_program(path):
     assert imported(path) <= {"__future__", "warnings", "numpy", "torch"}
 

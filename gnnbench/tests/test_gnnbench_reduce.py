@@ -81,6 +81,22 @@ def test_roofline_reads_two_launches_a_forward():
     assert read(run) is None
 
 
+def test_infer_mfu_of_a_gcn_run_is_the_gcn_count():
+    """The whole step's share reads the run's architecture's counts; for
+    gcn it is the number ``counts/gcn.py`` gave it directly."""
+    dims, nodes, nnz = [602, 16, 41], 23296, 11484884
+    rs = [Refresh(i % 2, 100 + i * 0.02, 100 + i * 0.02, 100.017 + i * 0.02,
+                  "completed") for i in range(40)]
+    run = _run(config={"arch": "gcn"}, refreshes=rs, trace=object(),
+               peaks=H100_SXM, num_nodes=nodes, nnz=nnz, dims=dims)
+    read = spec.load_module(spec.reader_path("infer_mfu"), "t_mfu").read
+    ms = reduce.refresh_ms(run)
+    assert read(run) == \
+        100.0 * counts.network_bound_s(nodes, nnz, dims, H100_SXM) / (ms / 1e3)
+    run.trace = None
+    assert read(run) is None
+
+
 def test_breakdown_names_gaps_by_host_activity():
     doc = _doc([("kernel", "k", 0.0, 100.0), ("kernel", "k", 900.0, 100.0)])
     tr = parse(doc, 1000.0 - 100.0, t0=100.0, t1=100.001)
@@ -114,3 +130,76 @@ def test_gap_named_by_what_covers_most_of_it():
         "server: refresh request, host side"
     assert host_activity(run, 100.0, 100.00002) == "engine: Server.reload"
     assert host_activity(run, 101.0, 101.5) == "driver: no work due"
+
+
+def _kernel_run(refreshes=4):
+    """Four completed refreshes; the trace holds two kernels of 20 µs and
+    5 µs a refresh, a DtoH copy of 50 µs and a memset of 1 µs."""
+    events = []
+    for k in range(refreshes):
+        events += [("kernel", "fused_gnn_kernel<true, true>", k * 1000.0, 20.0),
+                   ("kernel", "fused_gnn_kernel<false, true>", k * 1000 + 30.0,
+                    5.0),
+                   ("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)",
+                    k * 1000 + 40.0, 50.0),
+                   ("gpu_memset", "Memset (Device)", k * 1000 + 95.0, 1.0)]
+    tr = parse(_doc(events), 0.0, t0=1000.0, t1=1000.01)
+    rs = [Refresh(i % 2, 100 + i * 0.02, 100 + i * 0.02, 100.017 + i * 0.02,
+                  "completed") for i in range(refreshes)]
+    return _run(config={"arch": "gcn"}, trace=tr, refreshes=rs)
+
+
+def test_kernel_ms_is_the_kernels_device_time_over_the_refreshes():
+    run = _kernel_run()
+    assert run.trace.kernel_s() == pytest.approx(4 * 25e-6)
+    read = spec.load_module(spec.reader_path("kernel_ms"), "t_kms").read
+    assert read(run) == pytest.approx(0.025)
+    run.refreshes[-1].outcome = "expired"         # over the completed ones
+    assert read(run) == pytest.approx(4 * 0.025 / 3)
+    assert read(_run(refreshes=run.refreshes)) is None      # no trace
+    run.trace = parse(_doc([("gpu_memcpy", "Memcpy", 0.0, 9.0)]), 0.0,
+                      t0=1000.0, t1=1000.01)
+    assert read(run) is None                      # no kernel ran
+
+
+def test_kernel_mfu_is_the_gcn_count_over_the_kernel_time():
+    dims, nodes, nnz = [602, 16, 41], 23296, 11484884
+    run = _kernel_run()
+    run.peaks, run.num_nodes, run.nnz, run.dims = H100_SXM, nodes, nnz, dims
+    read = spec.load_module(spec.reader_path("kernel_mfu"), "t_kmfu").read
+    assert read(run) == pytest.approx(
+        100.0 * counts.network_bound_s(nodes, nnz, dims, H100_SXM) / 25e-6)
+    run.peaks = None
+    assert read(run) is None
+
+
+def test_refresh_ms_reads_the_window_over_the_refreshes():
+    """refresh_ms, end to end before as infer_ms, is the closed loop's
+    window over its completed refreshes."""
+    rs = [Refresh(i % 2, 100 + i * 0.01, 100 + i * 0.01, 100.01 + i * 0.01,
+                  "completed") for i in range(50)]
+    read = spec.load_module(spec.reader_path("refresh_ms"), "t_rms").read
+    assert read(_run(refreshes=rs)) == pytest.approx(10.0)
+    rs[-1].outcome = "expired"
+    assert read(_run(refreshes=rs)) == pytest.approx(
+        (rs[-2].t_done - 100.0) / 49 * 1e3)
+    assert read(_run()) is None
+
+
+@pytest.mark.parametrize("trace_flag, workload, device, traced", [
+    (False, "gcn-reddit01.refresh", "cuda", True),    # kernel_ms: a trace
+    (False, "gcn-pubmed.refresh", "cuda", True),
+    (True, "gcn-pubmed.refresh", "cuda", True),
+    (False, "gcn-reddit01.refresh", "cpu", False),    # no device to trace
+])
+def test_the_window_is_traced_where_an_end_to_end_metric_reads_the_device(
+        trace_flag, workload, device, traced):
+    import pathlib
+
+    from gnnbench.harness.drive import Driver
+
+    root = pathlib.Path(__file__).resolve().parents[2]
+    cell = spec.resolve(root, workload)
+    driver = Driver(cell, 1, 1.0, device, trace_flag, 0.0)
+    assert driver.traces_window is traced
+    assert driver.tracing is trace_flag               # the span recorder

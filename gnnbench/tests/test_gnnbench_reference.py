@@ -1,6 +1,8 @@
 """The benchmark's plain GCN agrees with the port's ``reference``
-backend on a small graph, before and after deltas; the count functions
-equal hand counts; the comparison's error behaves as documented."""
+backend on a small graph, before and after deltas, given each layer's
+parameters whole; the weights drawn from the reference's declared shapes
+equal the GCN draw they replaced, bit for bit; the count functions equal
+hand counts; the comparison's error behaves as documented."""
 import numpy as np
 import pytest
 import torch
@@ -35,15 +37,15 @@ def test_reference_matches_the_port_before_and_after_deltas(seed):
     given: the port's own deltas leave that list directed, with pairs
     gone and added, and the two still agree."""
     g = gen.make_graph("pubmed", seed=seed, scale=0.02)
-    w = make_weights([g.feature_dim, 16, g.num_classes], 1, seed, "cpu")[0]
-    layers = [layer["w"] for layer in w["layers"]]
+    dims = [g.feature_dim, 16, g.num_classes]
+    w = make_weights(ref.param_shapes(dims, {}), 1, seed, "cpu")[0]
     rng = np.random.default_rng(seed)
     data = GraphData(GraphProfile("t", g.num_nodes, len(g.edges),
                                   g.feature_dim, g.num_classes),
                      g.edges.copy(), g.features, g.labels, g.train_mask)
     for step in range(4):
         ours = ref.logits(ref.adjacency(data.edges, g.num_nodes, "cpu"),
-                          torch.as_tensor(g.features), layers).numpy()
+                          torch.as_tensor(g.features), w["layers"]).numpy()
         theirs = _port_logits(g, data.edges, w)
         np.testing.assert_allclose(ours, theirs, rtol=1e-5, atol=1e-6)
         apply_to_graph_data(data, random_delta(data, rng, edge_ops=8,
@@ -51,6 +53,54 @@ def test_reference_matches_the_port_before_and_after_deltas(seed):
     # deltas leave the graph directed: the normalization reads both degrees
     keys = set(gen.pair_keys(data.edges).tolist())
     assert any(((v << 32) | u) not in keys for u, v in data.edges.tolist())
+
+
+def _gcn_weights_as_drawn_before(dims, sets, seed, device):
+    """The GCN draw that ``make_weights`` replaced, frozen: one flat
+    ``torch.randn`` cut into (d, f) matrices, each Glorot normal."""
+    gen_ = torch.Generator(device=device)
+    gen_.manual_seed(seed % 2 ** 64)
+    shapes = list(zip(dims[:-1], dims[1:]))
+    per_set = sum(d * f for d, f in shapes)
+    flat = torch.randn(sets * per_set, generator=gen_, device=device)
+    trees, off = [], 0
+    for _ in range(sets):
+        layers = []
+        for d, f in shapes:
+            w = flat[off:off + d * f].view(d, f) * (2.0 / (d + f)) ** 0.5
+            layers.append({"w": w.contiguous()})
+            off += d * f
+        trees.append({"layers": layers})
+    return trees
+
+
+@pytest.mark.parametrize("dims", [[602, 16, 41], [500, 16, 3]])
+@pytest.mark.parametrize("seed", [7, 2 ** 31 + 5])
+def test_gcn_weights_are_the_draw_they_replaced(seed, dims):
+    ours = make_weights(ref.param_shapes(dims, {}), 2, seed, "cpu")
+    theirs = _gcn_weights_as_drawn_before(dims, 2, seed, "cpu")
+    assert len(ours) == len(theirs) == 2
+    for a, b in zip(ours, theirs):
+        assert [list(layer) for layer in a["layers"]] == [["w"], ["w"]]
+        for la, lb in zip(a["layers"], b["layers"]):
+            assert la["w"].dtype == lb["w"].dtype
+            assert torch.equal(la["w"], lb["w"])
+
+
+def test_weights_draw_every_declared_tensor():
+    """Biases and a rank-0 ε are drawn like the rest, so none is zero; a
+    rank-0 tensor is scaled by ``SCALAR_SCALE``, the others Glorot."""
+    from gnnbench.harness.drive import SCALAR_SCALE
+
+    shapes = [{"eps": (), "w1": (6, 4), "b1": (4,)}, {"w": (4, 2)}]
+    tree, = make_weights(shapes, 1, 3, "cpu")
+    flat = torch.randn(37, generator=torch.Generator().manual_seed(3))
+    eps, w1, b1 = (tree["layers"][0][k] for k in ("eps", "w1", "b1"))
+    assert eps.shape == () and torch.equal(eps, flat[0] * SCALAR_SCALE)
+    assert torch.equal(w1, flat[1:25].view(6, 4) * (2.0 / 10) ** 0.5)
+    assert torch.equal(b1, flat[25:29] * (2.0 / 8) ** 0.5)
+    assert bool((b1 != 0).all()) and float(eps) != 0.0
+    assert tree["layers"][1]["w"].shape == (4, 2)
 
 
 def test_counts_equal_hand_counts():

@@ -2,7 +2,9 @@
 metrics on a run with known spans, the self-interval reduction, the
 naming of idle gaps, a program without a recorder (every reader None,
 the breakdown as before), and a traced run on the CPU end to end with
-the profiler stood in for."""
+the profiler stood in for: the driver records the spans whatever readers
+the cell lists, and loading a reader patches nothing."""
+import json
 import sys
 import time
 
@@ -53,7 +55,7 @@ def _run(records=RECORDS, dropped=0):
                      Refresh(1, 100.5, 100.6, 100.9, "completed")]
     run.trace = _trace([(100.18, 100.28)])
     if records is not None:
-        run.trace.spans = spans.Spans(list(records), dropped)
+        run.spans = spans.Spans(list(records), dropped)
     return run
 
 
@@ -92,7 +94,6 @@ def test_self_intervals():
 
 
 def test_gaps_named_by_the_innermost_span_else_by_the_loop():
-    spans.install()
     run = _run()
     assert cell.host_activity(run, 100.0, 100.18) == \
         f"program {M}: engine.reload_params"
@@ -102,7 +103,7 @@ def test_gaps_named_by_the_innermost_span_else_by_the_loop():
         f"program {S}: python.gc.gen0"
     # past every span: the closed loop's own names
     assert cell.host_activity(run, 101.5, 102.0) == \
-        spans._loop_activity(run, 101.5, 102.0)
+        cell.loop_activity(run, 101.5, 102.0)
     assert not cell.host_activity(run, 101.5, 102.0).startswith("program")
     names = [name for name, _ in cell.breakdown(run)["idle_gaps"]]
     assert names == [f"program {S}: runtime.softmax",
@@ -110,10 +111,9 @@ def test_gaps_named_by_the_innermost_span_else_by_the_loop():
 
 
 def test_without_a_recorder_the_breakdown_is_the_loops(monkeypatch):
-    spans.install()
     run = _run(records=None)
     named = cell.breakdown(run)
-    monkeypatch.setattr(cell, "host_activity", spans._loop_activity)
+    monkeypatch.setattr(cell, "host_activity", cell.loop_activity)
     assert cell.breakdown(run) == named
     assert [n for n, _ in named["idle_gaps"]] == [
         "server: refresh request, host side", "engine: Server.reload"]
@@ -128,7 +128,6 @@ def root(tmp_path_factory):
 
 def _stand_in_profiler(monkeypatch):
     """A profiler that traces no device: the whole window is one gap."""
-    spans.install()
 
     def start(tracer):
         tracer._t0 = time.perf_counter()
@@ -136,8 +135,8 @@ def _stand_in_profiler(monkeypatch):
     def stop(tracer):
         return _trace([], tracer._t0, time.perf_counter())
 
-    monkeypatch.setattr(spans, "_plain_start", start)
-    monkeypatch.setattr(spans, "_plain_stop", stop)
+    monkeypatch.setattr(trace.Tracer, "start", start)
+    monkeypatch.setattr(trace.Tracer, "stop", stop)
 
 
 def _cell(root, trace_on):
@@ -156,7 +155,7 @@ def test_a_traced_run_reads_every_span_metric(root, monkeypatch):
     for name in READERS:
         assert name in result["metrics"], name
     assert not obs.enabled() and obs.drain() == ([], 0)
-    assert run.trace.spans.dropped == 0
+    assert run.spans.dropped == 0
     gap, = result["breakdown"]["idle_gaps"]
     assert gap[0].startswith("program ")
 
@@ -170,7 +169,7 @@ def test_a_traced_run_of_a_program_without_a_recorder(root, monkeypatch):
     result, _, run = _cell(root, True)
     assert result["correct"]
     assert not set(READERS) & set(result["metrics"])
-    assert not hasattr(run.trace, "spans")
+    assert run.spans is None
     gap, = result["breakdown"]["idle_gaps"]
     assert not gap[0].startswith("program ")
 
@@ -185,3 +184,66 @@ def test_an_untraced_run_never_switches_the_recorder_on(root, monkeypatch):
     result, _, run = _cell(root, False)
     assert result["correct"] and run.trace is None
     assert not obs.enabled()
+
+
+def test_an_untraced_run_reading_the_device_keeps_the_recorder_off(
+        root, monkeypatch):
+    """kernel_ms has the driver trace the device in a --trace 0 run; the
+    span recorder stays off all the same."""
+    from repro_torch import obs
+
+    def refuse():
+        raise AssertionError("obs.enable called in a --trace 0 run")
+
+    _stand_in_profiler(monkeypatch)
+    monkeypatch.setattr(trace.Tracer, "can_trace",
+                        staticmethod(lambda device: True))
+    monkeypatch.setattr(obs, "enable", refuse)
+    result, _, run = _cell(root, False)
+    assert result["correct"] and run.trace is not None and run.spans is None
+    assert "busy_s" not in result["device"] and "breakdown" not in result
+    assert not obs.enabled()
+
+
+def test_set_up_leaves_out_the_profilers_start(root, monkeypatch):
+    """setup_s is the program's set-up: a profiler that takes 0.3 s to
+    start lies between its end and the window's opening."""
+    _stand_in_profiler(monkeypatch)
+    started = trace.Tracer.start
+
+    def slow_start(tracer):
+        time.sleep(0.3)
+        started(tracer)
+
+    monkeypatch.setattr(trace.Tracer, "start", slow_start)
+    t_process = time.perf_counter()
+    result, _, run = cell.run_cell(root, "gcn-pubmed.refresh", seed=7,
+                                   seconds=0.3, trace=True, device="cpu",
+                                   t_process=t_process,
+                                   base=root / "gnnbench")
+    assert result["correct"]
+    assert run.t_open - t_process - run.setup_s >= 0.3
+
+
+def test_loading_the_readers_patches_nothing():
+    plain = (trace.Tracer.start, trace.Tracer.stop, cell.host_activity)
+    for name in READERS:
+        _read(name, _run())
+    assert (trace.Tracer.start, trace.Tracer.stop, cell.host_activity) == \
+        plain
+    assert not hasattr(spans, "install")
+
+
+def test_a_traced_run_records_spans_whatever_readers_the_cell_lists(
+        tmp_path, monkeypatch):
+    root = make_root(tmp_path)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["per_layer"] = [m for m in bench["per_layer"]
+                          if m["name"] == "idle_share.infer"]
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    _stand_in_profiler(monkeypatch)
+    result, _, run = _cell(root, True)
+    assert result["correct"] and set(result["metrics"]) == {"idle_share.infer"}
+    assert run.spans.records and run.spans.dropped == 0
+    gap, = result["breakdown"]["idle_gaps"]
+    assert gap[0].startswith("program ")

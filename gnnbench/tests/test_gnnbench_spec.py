@@ -1,6 +1,7 @@
 """BENCHMARK.json: its format, and every cell and metric resolved to the
 files that hold it; a configuration, traffic mix and metric added as
-files are picked up with no edit to a file that is there."""
+files are picked up with no edit to a file that is there, and so is an
+architecture (gin: its reference, counts, configuration and limits)."""
 import json
 import pathlib
 import re
@@ -130,3 +131,113 @@ def test_an_added_config_traffic_and_metric_need_no_edit(tmp_path):
     after = {p: p.read_bytes() for p in before}
     assert after == before
     shutil.rmtree(root / "gnnbench")
+
+
+GIN = pathlib.Path(__file__).resolve().parent / "gin"
+
+
+def _add_gin(root: pathlib.Path) -> str:
+    """Add the gin files under ``tests/gin/`` to the root's benchmark,
+    cut as the tiny root cuts an added configuration, with entries for
+    its configuration and cell and the cell named in the ``workloads``
+    of every metric the Pubmed refresh cell reports but gcn's kernel
+    roofline."""
+    from gnnbench_tiny import DEFAULT
+
+    base = root / "gnnbench"
+    for src in GIN.rglob("*"):
+        if src.is_file() and src.name != "entries.json":
+            dst = base / src.relative_to(GIN)
+            assert not dst.exists(), dst
+            dst.write_bytes(src.read_bytes())
+    path = base / "configs" / "gin-pubmed.json"
+    cfg = json.loads(path.read_text())
+    cfg.update(DEFAULT)
+    path.write_text(json.dumps(cfg))
+    entries = json.loads((GIN / "entries.json").read_text())
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"] += entries["configs"]
+    bench["workloads"] += entries["workloads"]
+    workload, = (w["name"] for w in entries["workloads"])
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "gcn-pubmed.refresh" in m.get("workloads", []) and \
+                not m["name"].startswith("fused_gnn_roofline"):
+            m["workloads"].append(workload)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return workload
+
+
+def _zero_in_pushes(monkeypatch, key: str) -> None:
+    """Make a weight push set ``key`` of every layer to zero inside the
+    program, on a copy of the pushed tree."""
+    import torch
+
+    from repro_torch.serving.gnn_engine import GNNServeEngine
+
+    plain = GNNServeEngine.reload_params
+
+    def reload_params(self, model, params):
+        layers = [{k: torch.zeros_like(v) if k == key else v
+                   for k, v in layer.items()} for layer in params["layers"]]
+        return plain(self, model, {"layers": layers})
+
+    monkeypatch.setattr(GNNServeEngine, "reload_params", reload_params)
+
+
+def _stand_in_device_profiler(monkeypatch):
+    """A profiler that traces a device on the CPU: one kernel of 1 ms in
+    the window, so the device-trace metrics have something to read."""
+    import numpy as np
+
+    from gnnbench.harness import trace
+
+    def start(tracer):
+        tracer._t0 = time.perf_counter()
+
+    def stop(tracer):
+        t1 = time.perf_counter()
+        return trace.DeviceTrace(["k"], np.array([tracer._t0]),
+                                 np.array([1e-3]), tracer._t0, t1, ["kernel"])
+
+    monkeypatch.setattr(trace.Tracer, "can_trace", staticmethod(lambda d: True))
+    monkeypatch.setattr(trace.Tracer, "start", start)
+    monkeypatch.setattr(trace.Tracer, "stop", stop)
+
+
+@pytest.mark.parametrize("zeroed", [None, "b1", "eps"])
+def test_an_added_architecture_needs_no_edit(tmp_path, monkeypatch, zeroed):
+    """gin, added as its reference, counts, configuration and limits, runs
+    as a cell and comes out correct; with ``b1`` or ``eps`` zeroed inside
+    the program it does not. No file already in the root changes."""
+    from gnnbench_tiny import make_root
+
+    from gnnbench.harness.peaks import H100_SXM
+
+    root = make_root(tmp_path)
+    base = root / "gnnbench"
+    before = {p: p.read_bytes() for p in base.rglob("*") if p.is_file()}
+    workload = _add_gin(root)
+    _stand_in_device_profiler(monkeypatch)
+    if zeroed:
+        _zero_in_pushes(monkeypatch, zeroed)
+    result, numbers, run = cell.run_cell(root, workload, seed=2 ** 31 + 9,
+                                         seconds=0.5, trace=False,
+                                         device="cpu",
+                                         t_process=time.perf_counter(),
+                                         base=base)
+    assert {p: p.read_bytes() for p in before} == before
+    assert numbers["compared"] > 0 and numbers["unanswered"] == 0
+    assert {"kernel_ms", "setup_s"} <= set(result["metrics"])
+    if zeroed:
+        assert not result["correct"], numbers
+        assert numbers["answer_err"] > result["checks"]["answer_err"]["limit"]
+        return
+    assert result["correct"], numbers
+    # the whole step's share reads gin's counts from the root
+    run.peaks, run.trace, run.nnz = H100_SXM, object(), 4000
+    gin = spec.load_module(base / "counts" / "gin.py", "t_gin_counts")
+    mfu = spec.load_module(spec.reader_path("infer_mfu", base), "t_gin_mfu")
+    want = gin.network_bound_s(run.num_nodes, 4000, run.dims, H100_SXM)
+    assert mfu.read(run) == \
+        pytest.approx(100.0 * want / (mfu.refresh_ms(run) / 1e3))
+    shutil.rmtree(base)
